@@ -1,0 +1,104 @@
+"""Arvo light selection and sampling of the port (ops/arvo_cuda.py,
+sampling/light_spherical.py) against the JAX package. K3 against its plain
+version on a card: tests/test_torch_cuda.py.
+
+Tolerances. The per-light weights come from quadratic forms in x whose f32
+cancellation amplifies rounding for small, distant light triangles; XLA on
+the CPU contracts multiply-adds into FMAs where torch rounds each op, so
+weights_sum agrees with JAX to rtol 1e-3 (the bound the JAX suite itself
+states for its fused kernel against ``prepare``, tests/test_arvo_pallas.py)
+and picks agree except on a counted CDF-boundary fringe."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from monte_carlo_path_tracing_tpu.core import rng as jrng
+from monte_carlo_path_tracing_tpu.ops import arvo_pallas
+from monte_carlo_path_tracing_tpu.sampling import light_spherical as jls
+from monte_carlo_path_tracing_tpu_torch.core import rng as trng
+from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda
+from monte_carlo_path_tracing_tpu_torch.sampling import light_spherical as tls
+from monte_carlo_path_tracing_tpu_torch.scene import scene_from_arrays
+
+from test_torch_scene import scene_arrays
+
+
+@pytest.fixture(scope="module")
+def scenes(veach_scene):
+    cam = veach_scene.camera
+    return veach_scene, scene_from_arrays(scene_arrays(veach_scene), cam.width, cam.height)
+
+
+
+def _points(scene, n, seed=0):
+    g = np.random.default_rng(seed)
+    v = scene.tri_v0.numpy()
+    lo, hi = v.min(0), v.max(0)
+    x1 = (g.random((n, 3)) * (hi - lo) * 0.8 + lo + 0.1 * (hi - lo)).astype(np.float32)
+    nrm = g.normal(size=(n, 3))
+    nrm = (nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)).astype(np.float32)
+    return x1, nrm, g.random(n).astype(np.float32)
+
+
+def test_plain_matches_pallas_interpret(scenes):
+    js, ts = scenes
+    x1, nrm, u = _points(ts, 512)
+    ij, wj = arvo_pallas.arvo_select(js, jnp.asarray(x1), jnp.asarray(nrm), jnp.asarray(u))
+    it, wt = arvo_cuda.arvo_select(arvo_cuda.pack_consts(ts), *map(torch.from_numpy, (x1, nrm, u)))
+    assert it.dtype == torch.int32
+    n_diff = int((np.asarray(ij) != it.numpy()).sum())
+    assert n_diff <= 5, n_diff                       # CDF-boundary fringe
+    np.testing.assert_allclose(np.asarray(wj), wt.numpy(), rtol=1e-3, atol=1e-6)
+
+
+def test_plain_matches_prepare_and_pick(scenes):
+    js, ts = scenes
+    x1, nrm, _ = _points(ts, 512, seed=1)
+    wj, sj = jls.prepare(js, jnp.asarray(x1), jnp.asarray(nrm))
+    wt, st = tls.prepare(ts, torch.from_numpy(x1), torch.from_numpy(nrm))
+    np.testing.assert_allclose(np.asarray(sj), st.numpy(), rtol=1e-3, atol=1e-6)
+    # Culls agree except where sA, or a front / horizon margin, lies within
+    # rounding of its threshold.
+    assert int(((np.asarray(wj) > 0) != (wt.numpy() > 0)).sum()) <= wt.numel() // 10000
+    ids = np.arange(512, dtype=np.int32)
+    pj = np.asarray(jrng.pick_weighted(jrng.fold_in(jrng.base_key(4), jnp.asarray(ids)),
+                                       wj, 512, sj))
+    tk = trng.fold_in(trng.base_key(4), torch.from_numpy(ids))
+    pt = trng.pick_weighted(tk, wt, 512, st).numpy()
+    assert int((pj != pt).sum()) <= 5
+    # arvo_select_plain is prepare + that pick, on the same uniform.
+    u = trng.uniform(tk, (512,))
+    ip, wp = arvo_cuda.arvo_select_plain(arvo_cuda.pack_consts(ts), torch.from_numpy(x1),
+                                         torch.from_numpy(nrm), u)
+    np.testing.assert_array_equal(ip.numpy(), pt)
+    np.testing.assert_array_equal(wp.numpy(), st.numpy())
+
+
+def test_sample_and_pdf_of_tri(scenes):
+    """Light samples from the same streams: same picks; landing points to
+    1e-4 of the distance on 85% of lanes and 1e-2 on all (the warp inherits
+    the solid angle's cancellation, see the module note); pdf_of_tri to
+    rtol 1e-3."""
+    js, ts = scenes
+    x1, nrm, _ = _points(ts, 512, seed=2)
+    jk, tk = jrng.fold_in(jrng.base_key(0), 1234), trng.fold_in(trng.base_key(0), 1234)
+    lj, wj = jls.sample(jk, js, jnp.asarray(x1), jnp.asarray(nrm))
+    lt, wt = tls.sample(tk, ts, torch.from_numpy(x1), torch.from_numpy(nrm))
+    same = np.asarray(lj.light_idx) == lt.light_idx.numpy()
+    assert same.mean() >= 0.99
+    np.testing.assert_array_equal(np.asarray(lj.valid), lt.valid.numpy())
+    np.testing.assert_array_equal(np.asarray(lj.tri_id)[same], lt.tri_id.numpy()[same])
+    ok = same & lt.valid.numpy()
+    ct = lt.coord.numpy()
+    rel = (np.linalg.norm(np.asarray(lj.coord) - ct, axis=-1)
+           / np.linalg.norm(ct - x1, axis=-1))[ok]
+    assert np.mean(rel < 1e-4) >= 0.85 and rel.max() < 1e-2, np.sort(rel)[-5:]
+    np.testing.assert_allclose(np.asarray(lj.pdf)[same], lt.pdf.numpy()[same], rtol=1e-3)
+    pj = np.asarray(jls.pdf_of_tri(js, jnp.asarray(x1), jnp.asarray(nrm), lj.light_idx, wj))
+    pt = tls.pdf_of_tri(ts, torch.from_numpy(x1), torch.from_numpy(nrm), lt.light_idx, wt).numpy()
+    np.testing.assert_allclose(pj[same], pt[same], rtol=1e-3, atol=1e-7)
+    # a non-light (-1) has pdf 0
+    assert (tls.pdf_of_tri(ts, torch.from_numpy(x1), torch.from_numpy(nrm),
+                           torch.full((512,), -1, dtype=torch.int32), wt) == 0).all()
