@@ -66,10 +66,11 @@ def ray_features(ro: torch.Tensor, rd: torch.Tensor) -> torch.Tensor:
 
 
 def dot10(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """[N,10] x [B,10] -> [N,B]: the ordered sum over k = 0..9."""
-    acc = g[:, 0:1] * w[None, :, 0]
+    """[..., N,10] x [..., B,10] -> [..., N,B]: the ordered sum over
+    k = 0..9 (leading dimensions batch tiles)."""
+    acc = g[..., 0:1] * w[..., None, :, 0]
     for k in range(1, 10):
-        acc = acc + g[:, k:k + 1] * w[None, :, k]
+        acc = acc + g[..., k:k + 1] * w[..., None, :, k]
     return acc
 
 

@@ -1,9 +1,8 @@
 """Render driver for the path-regeneration renderer.
 
 Counterpart of ``render_image_regen`` in
-``monte_carlo_path_tracing_tpu/render/renderer.py`` (its uncached branch).
-The render runs on the device that holds the scene's tensors
-(``Scene.to``).
+``monte_carlo_path_tracing_tpu/render/renderer.py``. The render runs on the
+device that holds the scene's tensors (``Scene.to``).
 """
 
 from __future__ import annotations
@@ -42,19 +41,22 @@ def render_image_regen(
     (spp index, pixel id), so the image does not depend on the split.
     ``on_launch(mean_image_hwc, spp_done)`` fires after every launch.
 
-    The primary-hit cache is not ported yet (ROADMAP queue 1, item 11):
-    ``primary_cache=True`` raises, and the default (None) runs the uncached
-    loop, which computes the same estimate from the same streams. Each
-    launch ends with the framebuffer copied to the host, so ``seconds``
-    covers all device work; nothing is warmed up before the clock starts.
+    Routing is the JAX package's: ``cfg.primary_cache`` None (the default)
+    takes the primary-hit cache (``render_regen_cached``: one camera trace
+    and one Arvo prepare per pixel and launch, then the loop over the
+    continuation seeds) whenever ``primary_cache_eligible(cfg)`` holds, and
+    the uncached loop otherwise; True / False force either. Both compute
+    the same estimate from the same streams. Each launch ends with the
+    framebuffer copied to the host, so ``seconds`` covers all device work;
+    nothing is warmed up before the clock starts.
     """
-    from monte_carlo_path_tracing_tpu_torch.integrator.regen import render_regen
+    from monte_carlo_path_tracing_tpu_torch.integrator.regen import (
+        primary_cache_eligible, render_regen, render_regen_cached,
+    )
 
     cfg.validate()
-    if cfg.primary_cache:
-        raise NotImplementedError(
-            "not ported yet: primary_cache=True (ROADMAP queue 1, item 11)"
-        )
+    use_cache = (cfg.primary_cache if cfg.primary_cache is not None
+                 else primary_cache_eligible(cfg))
     cam = scene.camera
     n_pix = cam.height * cam.width
     key = rng.base_key(cfg.seed, device=scene.device)
@@ -66,9 +68,14 @@ def render_image_regen(
     done = 0
     while done < cfg.spp:
         step = min(spp_per_launch, cfg.spp - done)
-        fb, nrays, _, _ = render_regen(
-            scene, cfg, key, n_pix, n_pix * step, lanes=lanes, spp0=done
-        )
+        if use_cache:
+            fb, nrays, _, _ = render_regen_cached(
+                scene, cfg, key, n_pix, spp_per_launch, step, lanes=lanes, spp0=done
+            )
+        else:
+            fb, nrays, _, _ = render_regen(
+                scene, cfg, key, n_pix, n_pix * step, lanes=lanes, spp0=done
+            )
         fb_acc += fb.cpu().numpy()
         rays += int(nrays)
         done += step

@@ -22,7 +22,7 @@ from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda
 from monte_carlo_path_tracing_tpu_torch.sampling import light_spherical as tls
 from monte_carlo_path_tracing_tpu_torch.scene import scene_from_arrays
 
-from test_torch_scene import scene_arrays
+from test_torch_scene import scene_arrays, torch_single_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels K1-K3 against their plain torch versions, and the
-port's render on the card against the same render on the CPU.
+"""The port's CUDA kernels K1-K5 against their plain torch versions (K4 / K5
+also against K1 / K2), and the port's render on the card against the same
+render on the CPU, uncached and cached.
 
 Needs an NVIDIA GPU: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where only PyTorch is installed:
@@ -72,6 +73,67 @@ def test_k1_k2_match_plain(dev, T, N):
     assert (bk == intersect_cuda.occluded_plain(g, W, ids, excl, tmax)).all()
 
 
+def _culled_case(T, N, dev, seed=0):
+    """A random soup of small triangles (Morton-ordered accel with AABBs)
+    and N rays: half a coherent fan from one point, half random."""
+    g = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    accel = ops_intersect._build(
+        f(g.uniform(-2, 2, (T, 3))), f(g.normal(size=(T, 3)) * 0.3),
+        f(g.normal(size=(T, 3)) * 0.3), torch.arange(T, dtype=torch.int32, device=dev),
+        ops_intersect.TRI_BLOCK)
+    h = N // 2
+    ro = np.concatenate([np.tile([-6.0, -5.0, -4.0], (h, 1)), g.uniform(-4, 4, (N - h, 3))])
+    rd = np.concatenate([g.uniform(-0.7, 0.7, (h, 3)) - ro[:h], g.normal(size=(N - h, 3))])
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    excl = torch.from_numpy(np.where(np.arange(N) % 7 == 0, np.arange(N) % T, -1)
+                            .astype(np.int32)).to(dev)
+    tmax = f(g.uniform(0.5, 8.0, N)) * (1.0 - ops_intersect.OCCLUSION_MARGIN)
+    return accel, f(ro), f(rd), excl, tmax
+
+
+@pytest.mark.parametrize("T,N", [(300, 257), (3000, 4097), (12000, 20000)])
+def test_k4_k5_match_plain_and_k1_k2(dev, T, N):
+    """On the same schedule K4 / K5 equal their plain versions (same f32
+    arithmetic, same visit order): ids, t / u / v to 1e-6, flags; and
+    culling changes no answer: K1 / K2 on the same rays agree."""
+    accel, ro, rd, excl, tmax = _culled_case(T, N, dev, seed=T)
+    c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl)
+    args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+    n4 = intersect_cuda.nearest_hit_culled.launches
+    hk = intersect_cuda.nearest_hit_culled(*args)
+    assert intersect_cuda.nearest_hit_culled.launches == n4 + 1
+    hp = intersect_cuda.nearest_hit_culled_plain(*args)
+    assert (hk.tri_id == hp.tri_id).all()
+    for a, b in ((hk.t, hp.t), (hk.u, hp.u), (hk.v, hp.v)):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    g = ops_intersect.ray_features(ro, rd).contiguous()
+    h1 = intersect_cuda.nearest_hit(g, accel.W, accel.tri_ids, excl)
+    assert (hk.tri_id[:N] == h1.tri_id).all()
+    assert bool(h1.valid.any())
+
+    c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl, tmax)
+    args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+    n5 = intersect_cuda.occluded_culled.launches
+    bk = intersect_cuda.occluded_culled(*args)
+    assert intersect_cuda.occluded_culled.launches == n5 + 1
+    assert (bk == intersect_cuda.occluded_culled_plain(*args)).all()
+    b2 = intersect_cuda.occluded(g, accel.W, accel.tri_ids, excl, tmax)
+    assert (bk[:N] == b2).all() and bool(b2.any())
+
+
+def test_culled_wrappers_reject_bad_schedules(dev):
+    accel, ro, rd, excl, _ = _culled_case(600, 300, dev)
+    c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl)
+    with pytest.raises(ValueError):          # rays not padded to the ray tile
+        intersect_cuda.nearest_hit_culled(c.g[:300].contiguous(), c.W, c.tri_ids,
+                                          c.excl[:300].contiguous(), c.bound[:300].contiguous(),
+                                          c.order, c.te)
+    with pytest.raises(TypeError):
+        intersect_cuda.nearest_hit_culled(c.g, c.W, c.tri_ids, c.excl, c.bound,
+                                          c.order.long(), c.te)
+
+
 def test_k3_matches_plain(dev):
     sc = _scene("veach-mis").to(dev)
     g = np.random.default_rng(3)
@@ -104,17 +166,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     assert _build.load() is _build.load()             # one build per process
 
 
-def test_render_card_matches_cpu(dev):
-    """The port's render_image_regen on the card (K1-K3) and on the CPU
-    (plain versions): ray counts to 0.1%, at most 1% of pixels diverged
-    beyond rtol 1e-2 / atol 1e-3 (transcendentals differ by ulps)."""
+@pytest.mark.parametrize("primary_cache", [False, None])
+def test_render_card_matches_cpu(dev, primary_cache):
+    """The port's render_image_regen on the card (K1-K3; K4 / K5 on the
+    default, cached route) and on the CPU (plain versions): ray counts to
+    0.1%, at most 1% of pixels diverged beyond rtol 1e-2 / atol 1e-3
+    (transcendentals differ by ulps)."""
     sc = _scene("cornell", 24)
-    cfg = RenderConfig(width=24, height=24, spp=2, estimator="mis", seed=11, max_depth=32)
-    counts = (intersect_cuda.nearest_hit.launches, arvo_cuda.arvo_select.launches)
+    cfg = RenderConfig(width=24, height=24, spp=2, estimator="mis", seed=11, max_depth=32,
+                       primary_cache=primary_cache)
+    kernels = [intersect_cuda.nearest_hit, arvo_cuda.arvo_select]
+    if primary_cache is None:
+        kernels += [intersect_cuda.nearest_hit_culled, intersect_cuda.occluded_culled]
+    counts = [k.launches for k in kernels]
     a = render_image_regen(sc, cfg, lanes=512)
     b = render_image_regen(sc.to(dev), cfg, lanes=512)
-    assert intersect_cuda.nearest_hit.launches > counts[0]
-    assert arvo_cuda.arvo_select.launches > counts[1]
+    assert all(k.launches > n for k, n in zip(kernels, counts))
     assert abs(a.rays_traced - b.rays_traced) <= a.rays_traced // 1000
     diverged = ~np.isclose(b.image, a.image, rtol=1e-2, atol=1e-3).all(-1)
     assert int(diverged.sum()) <= max(2, diverged.size // 100)

@@ -19,6 +19,8 @@ from monte_carlo_path_tracing_tpu_torch.ops import intersect_cuda as tic
 from monte_carlo_path_tracing_tpu_torch.ops import intersect_ref as tir
 from monte_carlo_path_tracing_tpu_torch.scene import load_scene
 
+from test_torch_scene import torch_single_thread  # noqa: F401  (autouse)
+
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 
 

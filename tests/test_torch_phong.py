@@ -12,6 +12,8 @@ from monte_carlo_path_tracing_tpu.sampling import phong as jph
 from monte_carlo_path_tracing_tpu_torch.core import rng as trng
 from monte_carlo_path_tracing_tpu_torch.sampling import phong as tph
 
+from test_torch_scene import torch_single_thread  # noqa: F401  (autouse)
+
 
 def _inputs(n=1000, seed=0):
     g = np.random.default_rng(seed)

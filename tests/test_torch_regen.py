@@ -1,6 +1,7 @@
-"""The slice as a whole: the port's uncached regeneration render
-(render/renderer.py::render_image_regen -> integrator/regen.py) against the
-JAX package's on the CPU, plus its stream invariances.
+"""The port's uncached regeneration render (render/renderer.py::
+render_image_regen with primary_cache=False -> integrator/regen.py) against
+the JAX package's on the CPU, plus its stream invariances. The cached
+render (the default route): tests/test_torch_prepass.py.
 
 Tolerance. Both packages consume the same threefry streams, so the images
 agree path for path up to f32 rounding — except that XLA on the CPU fuses
@@ -27,7 +28,7 @@ from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image_rege
 from monte_carlo_path_tracing_tpu_torch.scene import scene_from_arrays
 from monte_carlo_path_tracing_tpu_torch.utils.config import RenderConfig
 
-from test_torch_scene import scene_arrays
+from test_torch_scene import scene_arrays, torch_single_thread  # noqa: F401  (autouse)
 
 
 def _pair(jax_scene, wh):
@@ -70,7 +71,8 @@ def test_regen_lane_count_invariance(cornell_scene):
     port's image is the same at 256 and 2048 lanes (the framebuffer sums
     paths in another order: f32 round-off)."""
     _, ts = _pair(cornell_scene, 24)
-    cfg = RenderConfig(width=24, height=24, spp=2, estimator="mis", seed=5, max_depth=32)
+    cfg = RenderConfig(width=24, height=24, spp=2, estimator="mis", seed=5, max_depth=32,
+                       primary_cache=False)
     a = render_image_regen(ts, cfg, lanes=256)
     b = render_image_regen(ts, cfg, lanes=2048)
     assert a.rays_traced == b.rays_traced
@@ -81,7 +83,8 @@ def test_regen_launch_split_invariance(cornell_scene):
     """One spp per launch (spp0 carried across launches) gives the image
     of a single launch."""
     _, ts = _pair(cornell_scene, 24)
-    cfg = RenderConfig(width=24, height=24, spp=3, estimator="mis", seed=7, max_depth=32)
+    cfg = RenderConfig(width=24, height=24, spp=3, estimator="mis", seed=7, max_depth=32,
+                       primary_cache=False)
     seen = []
     a = render_image_regen(ts, cfg, lanes=512)
     b = render_image_regen(ts, cfg, lanes=512, max_samples_per_launch=24 * 24,
@@ -104,19 +107,12 @@ def test_render_regen_returns_sums_and_uses_plain_versions_on_cpu(cornell_scene)
 
 
 @pytest.mark.parametrize("change", [
-    dict(estimator="brdf"), dict(estimator="split"), dict(light_sampler="uniform_area"),
     dict(ref_mis_weights=True), dict(ref_mis_weights=True, mis_blocker_compat=True),
-    dict(ray_sort=True), dict(accel="grid"), dict(primary_cache=True),
+    dict(ray_sort=True), dict(accel="grid"),
 ])
 def test_unported_options_raise(cornell_scene, change):
+    """One case per option still unported (ROADMAP queue 1, item 16)."""
     _, ts = _pair(cornell_scene, 8)
     cfg = RenderConfig(width=8, height=8, spp=1, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_image_regen(ts, cfg, lanes=32)
-
-
-def test_seed_mode_raises(cornell_scene):
-    _, ts = _pair(cornell_scene, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        regen.render_regen(ts, RenderConfig(width=8, height=8), rng.base_key(0), 64, 64,
-                           lanes=32, seed_mode=())

@@ -10,6 +10,8 @@ import torch
 from monte_carlo_path_tracing_tpu.core import rng as jrng
 from monte_carlo_path_tracing_tpu_torch.core import rng as trng
 
+from test_torch_scene import torch_single_thread  # noqa: F401  (autouse)
+
 
 def _words(key) -> np.ndarray:
     return np.asarray(jax.random.key_data(key)).astype(np.int64)

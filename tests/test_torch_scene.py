@@ -21,6 +21,19 @@ from monte_carlo_path_tracing_tpu_torch.scene.types import SCENE_ARRAYS
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
 
 
+@pytest.fixture(autouse=True)
+def torch_single_thread():
+    """Torch on one thread in the port's CPU tests. Tier-1 runs six pytest
+    workers on a few cores, and torch's intra-op pool in each worker would
+    oversubscribe them (measured on 8 cores: one port test took 188 s in
+    the six-worker run instead of 3.9 s alone). Test modules import this
+    fixture to use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def scene_arrays(scene) -> dict:
     """A Scene's (JAX or port) array leaves as numpy, keyed like SCENE_ARRAYS."""
     out = {}
