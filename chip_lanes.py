@@ -52,7 +52,7 @@ def main():
     ap.add_argument("--repeats", type=int, default=1)
     args = ap.parse_args()
     _, smi = cs.phase_device()
-    scene_cpu = cs.load_scene(cs.VEACH)
+    scene_cpu = cs.load_scene(cs.VEACH, device="cpu")
     cs.render_image_regen(cs.with_res(scene_cpu, 64, 64).to("cuda"),
                           cs.RenderConfig(width=64, height=64, spp=1, seed=0), lanes=2048)
     scene = cs.with_res(scene_cpu, cs.RES, cs.RES).to("cuda")

@@ -11,14 +11,18 @@ exits non-zero without printing a result:
 2. build: compile the port's CUDA kernels from ``csrc/`` (nvcc, sm_90a);
 3. kernels: K1 (nearest hit), K2 (any hit) and K3 (Arvo light pick)
    against their plain torch versions on the card, at the loop's shapes
-   (Veach MIS, 32,768 rays / shading points), with median times;
+   (Veach MIS; 65,536 rays / shading points, the cached loop's lanes, and
+   32,768, the uncached loop's), with median times and bounds; K1 / K2 also
+   with separately rounded dots (bit-equal to the plain versions); K1's
+   lowest-index tie rule on the real triangles twice over, the copy shifted
+   so that each triangle and its copy fall to different threads;
 4. culled kernels: K4 (culled nearest hit) and K5 (culled any hit) on the
    batches one primary-prepass chunk hands them (the camera fan of rows
    480-511 of the 1024^2 camera, and its 8 rounds of depth-0 shadow rays),
    against their plain versions and against K1 / K2 on the same rays, with
-   median times; K5 also on that shadow batch with t_max moved past each
-   ray's first hit, so that its flags are a mix and some ray tiles are all
-   blocked;
+   median times and bounds; K5 also on that shadow batch with t_max moved
+   past each ray's first hit, so that its flags are a mix and some ray
+   tiles are all blocked;
 5. end to end, uncached: the Veach MIS render at the bench's uncached
    configuration (1024^2, 8 spp, MIS + spherical-triangle NEE, depth 16,
    seed 0, 32,768 lanes) through ``render_image_regen`` with
@@ -30,7 +34,10 @@ exits non-zero without printing a result:
 7. two devices: the same entry point renders Veach at 64^2, 4 spp on the
    card and on the CPU, uncached and cached; ray counts and images agree.
 
-The last lines are a JSON object of per-kernel results, the card's
+The last lines are a JSON object of per-kernel results (time, plain
+version's time, bound — the larger of the operations this run's inputs
+need over the f32 peak and the bytes moved over the memory rate — and
+share of the bound, launches on the cached render), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
@@ -76,8 +83,34 @@ REF_CHECKSUM, REF_RAYS = 40655356.0, 21374288
 CHECKSUM_GAP, RAYS_GAP = 2e-3, 1e-4
 REF_CHECKSUM_CACHED, REF_RAYS_CACHED = 40655352.0, 21374290
 CHECKSUM_GAP_CACHED, RAYS_GAP_CACHED = 1.9e-3, 5.91e-5
-#: Main-path batch: rays per extension / shadow trace, points per NEE pick.
-N_MAIN = 1 << 15
+#: Batches of the main path: rays per extension / shadow trace and points
+#: per NEE pick, at the uncached loop's lanes and at the cached loop's (where
+#: K1-K3 run 107 times per render); the kernels' JSON entries are at the
+#: latter.
+N_MAIN, N_CACHED = LANES, LANES_CACHED
+#: Rows put between the triangles and their copy in the tie check. K1 deals
+#: the rows of a tile to its RB_G = 4 threads by index mod 4
+#: (csrc/intersect.cu); with a shift that keeps the copy off its
+#: original's residue, the shuffle merge, not one thread's strict '<',
+#: settles every tie.
+TIE_SHIFT, RB_G = 1, 4
+#: Operations per unit of work, for each kernel's bound (the least time
+#: the card could take for the work this run's inputs need):
+OPS = {
+    # K1 / K4 per (ray, triangle): four 10-term dots (40 multiplies, 36
+    # adds), the sign fix and the margin test (~14).
+    "pair": 90,
+    # K2 / K5: the same and t' < tmax |det|.
+    "anyhit_pair": 92,
+    # K3 per (point, light) weight: ~84 f32 operations; three square roots
+    # and atan2f counted as one operation each. The function needs one
+    # weight per pair; the weights K3's second pass recomputes up to the
+    # pick are its design's cost and are not counted.
+    "arvo": 88,
+}
+#: f32 peak outside the tensor cores and memory rate of an H100 SXM at
+#: 700 W (NVIDIA data sheet).
+PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 #: The prepass chunk whose batches the culled kernels are checked on:
 #: pixel rows [480, 512) of the 1024^2 camera (one 32,768-pixel chunk).
 FAN_ROW0, FAN_ROWS = 480, 32
@@ -130,20 +163,81 @@ def phase_build():
             log(f"[build]   {line.strip()}")
 
 
-def main_path_inputs(scene, accel):
-    """32,768 rays of the main path (half camera rays of the bench's 1024^2
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(ops: float, moved: int):
+    """(bound ms, what bounds it): the larger of ``ops`` f32 operations over
+    the f32 peak and ``moved`` bytes over the memory rate."""
+    t_ops, t_bytes = ops / PEAK_F32, moved / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def anyhit_pairs(g, W, ids, excl, tmax, order=None, te=None,
+                 t_eps: float = ops_intersect.T_EPS) -> int:
+    """(ray, triangle) pairs an any-hit call needs on these inputs: each ray
+    tests the real triangles (id >= 0) in visit order up to and including
+    its first blocker, or all of them when none blocks it. The visit order
+    is accel order (K2: ``order`` None), or for each ray tile the triangle
+    tiles of ``order`` whose te < BIG_T / 2, in that order (K5). Plain
+    torch, in pieces of a few million pairs."""
+    N, T = g.shape[0], W.shape[0]
+    if order is None:
+        order = torch.zeros((1, 1), dtype=torch.int32, device=g.device)
+        te = torch.zeros((1, 1), device=g.device)
+    nrt, nb = order.shape
+    rt, tile = N // nrt, T // nb
+    gt, ex, tm = g.view(nrt, rt, 10), excl.view(nrt, rt), tmax.view(nrt, rt)
+    Wt, idt = W.view(nb, tile, 10, 4), ids.view(nb, tile)
+    real_upto = torch.cumsum((idt >= 0).long(), dim=1)       # [nb, tile]
+    need = torch.zeros((nrt, rt), dtype=torch.int64, device=g.device)
+    done = torch.zeros((nrt, rt), dtype=torch.bool, device=g.device)
+    sub = max(1, min(rt, (1 << 22) // tile))
+    for k in range(nb):
+        rows = torch.nonzero(te[:, k] < ops_intersect.BIG_T / 2).flatten()
+        for r in rows.split(max(1, (1 << 22) // (sub * tile))):
+            b = order[r, k].long()
+            for s0 in range(0, rt, sub):
+                sl = slice(s0, s0 + sub)
+                ok, tp, adet = intersect_cuda._accept(gt[r, sl], Wt[b], idt[b], ex[r, sl], t_eps)
+                hit = ok & (tp < tm[r, sl][..., None] * adet)           # [m, s, tile]
+                blocked = hit.any(dim=-1)
+                first = torch.where(blocked, hit.int().argmax(dim=-1), tile - 1)
+                counted = torch.gather(real_upto[b], 1, first)
+                need[r, sl] += torch.where(done[r, sl], 0, counted)
+                done[r, sl] |= blocked
+    return int(need.sum())
+
+
+def nearest_culled_pairs(c, best_t, n: int) -> int:
+    """(ray, triangle) pairs a culled nearest-hit call (K4) needs: for each
+    of its first ``n`` rays, the real triangles of the tiles whose te is at
+    most the ray's final best t (``best_t``: its hit t, or the scene-exit
+    cap where it misses) — the tiles that could hold a nearer hit."""
+    nrt, nb = c.order.shape
+    rt, tile = c.g.shape[0] // nrt, c.W.shape[0] // nb
+    real = (c.tri_ids >= 0).view(nb, tile).sum(dim=1)[c.order.long()]   # [nrt, nb]
+    bt = best_t.view(nrt, rt)
+    visit = c.te[:, None, :] <= bt[:, :, None]                          # [nrt, rt, nb]
+    mine = (torch.arange(nrt * rt, device=bt.device) < n).view(nrt, rt, 1)
+    return int((visit & mine).long().mul(real[:, None, :]).sum())
+
+
+def main_path_inputs(scene, accel, n: int):
+    """``n`` rays of the main path (half camera rays of the bench's 1024^2
     camera, half BRDF bounces leaving their hit points), and the shading
     points where those rays land — traced with the plain version."""
     dev = scene.device
-    half = N_MAIN // 2
+    half = n // 2
     gen = np.random.default_rng(0)
     cam = scene.camera
-    u, v, n, dist = camera_basis(cam)
+    u, v, nrm, dist = camera_basis(cam)
     gpix = torch.as_tensor(gen.integers(0, cam.width * cam.height, half), device=dev)
-    ro0, rd0 = primary_dirs(cam, u, v, n, dist, pixel_len(cam, dist), gpix)
+    ro0, rd0 = primary_dirs(cam, u, v, nrm, dist, pixel_len(cam, dist), gpix)
     excl0 = torch.full((half,), -1, dtype=torch.int32, device=dev)
     tri_to_light = common.light_index_table(scene)
-    W, ids = accel.W, accel.tri_ids
+    W, ids = accel.real_rows()
     h0 = intersect_cuda.nearest_hit_plain(ops_intersect.ray_features(ro0, rd0), W, ids, excl0)
     si0 = common.gather_interaction(scene, h0, rd0, tri_to_light)
     key = rng.fold_in(rng.base_key(1, device=dev), torch.arange(half, device=dev))
@@ -156,87 +250,146 @@ def main_path_inputs(scene, accel):
     return ro, rd, excl, hit, si
 
 
-def phase_kernels(scene):
-    """K1-K3 against their plain versions on the card at main-path shapes."""
-    dev = scene.device
-    accel = ops_intersect.build_accel(scene)
-    ro, rd, excl, hit, si = main_path_inputs(scene, accel)
-    W, ids = accel.W, accel.tri_ids
-    g = ops_intersect.ray_features(ro, rd).contiguous()
-    ok = hit.valid
-    log(f"[kernels] veach: {scene.num_tris} triangles ({W.shape[0]} padded), "
-        f"{scene.num_lights} lights; {g.shape[0]} rays, {int(ok.sum())} hit")
-    out = []
+def _entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by):
+    return dict(name=name, route="cuda", source=f"monte_carlo_path_tracing_tpu_torch/csrc/{source}",
+                replaces=f"monte_carlo_path_tracing_tpu/ops/{replaces}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, share=bound_ms / ms,
+                library_ms=None)
 
-    # K1: nearest hit.
+
+def _k1(g, W, ids, excl, n):
+    """K1 against its plain version and across its instances; times."""
     hk = intersect_cuda.nearest_hit(g, W, ids, excl)
     hp = intersect_cuda.nearest_hit_plain(g, W, ids, excl)
+    hs = intersect_cuda.nearest_hit(g, W, ids, excl, fma=False)
     torch.cuda.synchronize()
-    same = hk.tri_id == hp.tri_id
-    n_diff = int((~same).sum())
-    m = same & hk.valid
-    err = max(float((hk.t - hp.t)[m].abs().max()), float((hk.u - hp.u)[m].abs().max()),
-              float((hk.v - hp.v)[m].abs().max()))
-    log(f"[kernels] K1 ids differ on {n_diff} of {g.shape[0]} rays (fringe bound 0.1%); "
-        f"max |dt|,|du|,|dv| on equal ids {err:.3g} (bound 1e-5 rel)")
-    assert n_diff <= g.shape[0] // 1000, "K1 disagrees with its plain version"
-    for a, b in ((hk.t, hp.t), (hk.u, hp.u), (hk.v, hp.v)):
-        torch.testing.assert_close(a[m], b[m], rtol=1e-5, atol=1e-6)
+    n_diff, err = _compare_hits(hk, hp)
+    same = hs.tri_id == hp.tri_id
+    n_sep = int((~same).sum())
+    exact = all(torch.equal(a[same], b[same]) for a, b in ((hs.t, hp.t), (hs.u, hp.u), (hs.v, hp.v)))
+    log(f"[kernels] K1 at {n} rays: ids differ from plain on {n_diff} (fused dots; fringe bound "
+        f"0.1%), max |dt|,|du|,|dv| on equal ids {err:.3g} (rtol 1e-5); separately rounded: "
+        f"{n_sep} differ, t/u/v bit-equal {exact}")
+    assert n_diff <= n // 1000, "K1 disagrees with its plain version"
+    assert n_sep == 0 and exact, "K1 with separately rounded dots is not the plain version"
     ms = time_ms(lambda: intersect_cuda.nearest_hit(g, W, ids, excl))
+    sep_ms = time_ms(lambda: intersect_cuda.nearest_hit(g, W, ids, excl, fma=False))
     pms = time_ms(lambda: intersect_cuda.nearest_hit_plain(g, W, ids, excl), reps=5)
-    log(f"[kernels] K1 {ms:.3f} ms, plain {pms:.3f} ms")
-    out.append(dict(name="K1 nearest_hit", route="cuda",
-                    source="monte_carlo_path_tracing_tpu_torch/csrc/intersect.cu",
-                    replaces="monte_carlo_path_tracing_tpu/ops/intersect_pallas.py:299",
-                    max_abs_err=err, ms=ms, plain_ms=pms))
+    bms, by = bound(n * W.shape[0] * OPS["pair"], nbytes(g, W, ids, excl) + n * 16)
+    log(f"[kernels] K1 at {n} rays x {W.shape[0]} triangles: {ms:.3f} ms, plain {pms:.3f} ms, "
+        f"bound {bms:.3f} ms ({by}), share {bms / ms:.3f}; separately rounded dots "
+        f"{sep_ms:.3f} ms")
+    return hk, _entry("K1 nearest_hit", "intersect.cu", "intersect_pallas.py:299", err, ms, pms,
+                      bms, by)
 
-    # K3: Arvo light pick at the shading points where those rays landed.
-    C = arvo_cuda.pack_consts(scene)
-    x1, nrm = si.p.contiguous(), si.ns.contiguous()
-    u = rng.uniform(rng.fold_in(rng.base_key(2, device=dev), torch.arange(N_MAIN, device=dev)),
-                    (N_MAIN,))
+
+def _k2(gs, W, ids, sexcl, tmax, n):
+    """K2 against its plain version and across its instances; times."""
+    bk = intersect_cuda.occluded(gs, W, ids, sexcl, tmax)
+    bp = intersect_cuda.occluded_plain(gs, W, ids, sexcl, tmax)
+    bs = intersect_cuda.occluded(gs, W, ids, sexcl, tmax, fma=False)
+    torch.cuda.synchronize()
+    n_diff, n_sep = int((bk != bp).sum()), int((bs != bp).sum())
+    log(f"[kernels] K2 at {n} shadow rays: flags differ from plain on {n_diff} (fused dots; "
+        f"bound 0.1%), separately rounded on {n_sep}; {float(bp.float().mean()):.3f} blocked")
+    assert n_diff <= n // 1000, "K2 disagrees with its plain version"
+    assert n_sep == 0, "K2 with separately rounded dots is not the plain version"
+    ms = time_ms(lambda: intersect_cuda.occluded(gs, W, ids, sexcl, tmax))
+    sep_ms = time_ms(lambda: intersect_cuda.occluded(gs, W, ids, sexcl, tmax, fma=False))
+    pms = time_ms(lambda: intersect_cuda.occluded_plain(gs, W, ids, sexcl, tmax), reps=5)
+    pairs = anyhit_pairs(gs, W, ids, sexcl, tmax)
+    bms, by = bound(pairs * OPS["anyhit_pair"], nbytes(gs, W, ids, sexcl, tmax) + n * 4)
+    log(f"[kernels] K2 at {n} rays: {ms:.3f} ms, plain {pms:.3f} ms, {pairs} pairs needed "
+        f"({pairs / (n * W.shape[0]):.3f} of all), bound {bms:.3f} ms ({by}), share "
+        f"{bms / ms:.3f}; separately rounded dots {sep_ms:.3f} ms")
+    return _entry("K2 occluded", "intersect.cu", "intersect_pallas.py:328",
+                  float((bk.float() - bp.float()).abs().max()), ms, pms, bms, by)
+
+
+def _k3(C, x1, nrm, u, n):
     ik, wk = arvo_cuda.arvo_select(C, x1, nrm, u)
     ip, wp = arvo_cuda.arvo_select_plain(C, x1, nrm, u)
     torch.cuda.synchronize()
     n_diff = int((ik != ip).sum())
     err = float((wk - wp).abs().max())
-    log(f"[kernels] K3 picks differ on {n_diff} of {N_MAIN} points (CDF-boundary fringe, "
-        f"bound 0.1%); wsum max abs err {err:.3g} (rtol 1e-5)")
-    assert n_diff <= N_MAIN // 1000, "K3 disagrees with its plain version"
+    log(f"[kernels] K3 at {n} points: picks differ on {n_diff} (CDF-boundary fringe, bound "
+        f"0.1%); wsum max abs err {err:.3g} (rtol 1e-5)")
+    assert n_diff <= n // 1000, "K3 disagrees with its plain version"
     torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-6)
     ms = time_ms(lambda: arvo_cuda.arvo_select(C, x1, nrm, u))
     pms = time_ms(lambda: arvo_cuda.arvo_select_plain(C, x1, nrm, u), reps=5)
-    log(f"[kernels] K3 {ms:.3f} ms, plain {pms:.3f} ms")
-    k3 = dict(name="K3 arvo_select", route="cuda",
-              source="monte_carlo_path_tracing_tpu_torch/csrc/arvo.cu",
-              replaces="monte_carlo_path_tracing_tpu/ops/arvo_pallas.py:111",
-              max_abs_err=err, ms=ms, plain_ms=pms)
+    L = C.shape[0]
+    evals = n * L                                        # one weight per (point, light)
+    bms, by = bound(evals * OPS["arvo"], nbytes(C, x1, nrm, u) + n * 8)
+    log(f"[kernels] K3 at {n} points x {L} lights: {ms:.3f} ms, plain {pms:.3f} ms, {evals} "
+        f"weight evaluations, bound {bms:.3f} ms ({by}), share {bms / ms:.3f}")
+    return _entry("K3 arvo_select", "arvo.cu", "arvo_pallas.py:111", err, ms, pms, bms, by)
 
-    # K2: NEE shadow rays from those points to Arvo-sampled light points.
-    ls, _ = light_spherical.sample(rng.fold_in(rng.base_key(3, device=dev), torch.arange(N_MAIN, device=dev)),
-                                   scene, x1, nrm, consts=C)
-    wl_raw = ls.coord - si.p
-    dist = torch.sqrt(torch.clamp((wl_raw * wl_raw).sum(-1), min=1e-20))
-    wl = (wl_raw / dist[:, None]).contiguous()
-    gs = ops_intersect.ray_features(x1, wl).contiguous()
-    tmax = (dist * (1.0 - ops_intersect.OCCLUSION_MARGIN)).contiguous()
-    sexcl = si.tri_id.contiguous()
-    bk = intersect_cuda.occluded(gs, W, ids, sexcl, tmax)
-    bp = intersect_cuda.occluded_plain(gs, W, ids, sexcl, tmax)
+
+def _tie_check(g, W, ids, excl):
+    """K1 on the real rows twice over (the copy's ids + 2**20), the copy
+    shifted by TIE_SHIFT rows of copies: every hit must be the first
+    copy's, as K1 on the rows once gives it."""
+    n = W.shape[0]
+    assert (n + TIE_SHIFT) % RB_G, "the copy would fall to its original's thread"
+    W2 = torch.cat([W, W[:TIE_SHIFT], W]).contiguous()
+    ids2 = torch.cat([ids, ids[:TIE_SHIFT] + (1 << 20), ids + (1 << 20)]).contiguous()
+    once = intersect_cuda.nearest_hit(g, W, ids, excl)
+    twice = intersect_cuda.nearest_hit(g, W2, ids2, excl)
+    plain = intersect_cuda.nearest_hit_plain(g, W2, ids2, excl)
     torch.cuda.synchronize()
-    n_diff = int((bk != bp).sum())
-    log(f"[kernels] K2 flags differ on {n_diff} of {N_MAIN} shadow rays (bound 0.1%); "
-        f"{float(bp.float().mean()):.3f} blocked")
-    assert n_diff <= N_MAIN // 1000, "K2 disagrees with its plain version"
-    ms = time_ms(lambda: intersect_cuda.occluded(gs, W, ids, sexcl, tmax))
-    pms = time_ms(lambda: intersect_cuda.occluded_plain(gs, W, ids, sexcl, tmax), reps=5)
-    log(f"[kernels] K2 {ms:.3f} ms, plain {pms:.3f} ms")
-    out.append(dict(name="K2 occluded", route="cuda",
-                    source="monte_carlo_path_tracing_tpu_torch/csrc/intersect.cu",
-                    replaces="monte_carlo_path_tracing_tpu/ops/intersect_pallas.py:328",
-                    max_abs_err=float((bk.float() - bp.float()).abs().max()), ms=ms, plain_ms=pms))
-    out.append(k3)
-    return out
+    n_dup = int((twice.tri_id >= (1 << 20)).sum())
+    n_once = int((twice.tri_id != once.tri_id).sum())
+    n_plain = int((twice.tri_id != plain.tri_id).sum())
+    log(f"[kernels] tie rule: {g.shape[0]} camera rays against {n} triangles twice over "
+        f"(copy shifted {TIE_SHIFT} row): {int(twice.valid.sum())} hit, {n_dup} on the copy, {n_once} differ from K1 on "
+        f"the rows once, {n_plain} from plain (fringe bound 0.1%)")
+    assert n_dup == 0 and n_once == 0, "K1 broke the lowest-index tie rule"
+    assert n_plain <= g.shape[0] // 1000, "K1 disagrees with its plain version on ties"
+
+
+def phase_kernels(scene):
+    """K1-K3 against their plain versions on the card at the loop's shapes,
+    65,536 rays (cached) and 32,768 (uncached), with median times, bounds
+    and K1 / K2 with separately rounded dots; the lowest-index tie rule of
+    K1. The
+    entries are the 65,536-ray ones, each with its 32,768-ray numbers."""
+    dev = scene.device
+    accel = ops_intersect.build_accel(scene)
+    W, ids = accel.real_rows()
+    C = arvo_cuda.pack_consts(scene)
+    log(f"[kernels] veach: {scene.num_tris} triangles ({accel.W.shape[0]} padded; K1 / K2 "
+        f"take the {W.shape[0]} real rows), {scene.num_lights} lights")
+    entries = {}
+    for n in (N_CACHED, N_MAIN):
+        ro, rd, excl, hit, si = main_path_inputs(scene, accel, n)
+        g = ops_intersect.ray_features(ro, rd).contiguous()
+        log(f"[kernels] {n} main-path rays, {int(hit.valid.sum())} hit")
+        hk, k1 = _k1(g, W, ids, excl, n)
+        if n == N_CACHED:
+            _tie_check(g[:n // 2].contiguous(), W, ids, excl[:n // 2].contiguous())
+        # K3: Arvo light pick at the shading points where those rays landed.
+        x1, nrm = si.p.contiguous(), si.ns.contiguous()
+        u = rng.uniform(rng.fold_in(rng.base_key(2, device=dev), torch.arange(n, device=dev)),
+                        (n,))
+        k3 = _k3(C, x1, nrm, u, n)
+        # K2: NEE shadow rays from those points to Arvo-sampled light points.
+        ls, _ = light_spherical.sample(
+            rng.fold_in(rng.base_key(3, device=dev), torch.arange(n, device=dev)), scene, x1,
+            nrm, consts=C)
+        wl_raw = ls.coord - si.p
+        dist = torch.sqrt(torch.clamp((wl_raw * wl_raw).sum(-1), min=1e-20))
+        wl = (wl_raw / dist[:, None]).contiguous()
+        gs = ops_intersect.ray_features(x1, wl).contiguous()
+        tmax = (dist * (1.0 - ops_intersect.OCCLUSION_MARGIN)).contiguous()
+        k2 = _k2(gs, W, ids, si.tri_id.contiguous(), tmax, n)
+        for e in (k1, k2, k3):
+            if n == N_CACHED:
+                entries[e["name"]] = e
+            else:
+                entries[e["name"]]["at_32768"] = {k: e[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                   "share")}
+    return list(entries.values())
 
 
 def main_cfg(**kw) -> RenderConfig:
@@ -287,7 +440,7 @@ def _compare_hits(a, b):
 def _check_k5(accel, ro, rd, excl, scaled, tag):
     """K5 against its plain version and against K2 on one shadow batch;
     returns (flags differing from plain, blocked share, args of the call)."""
-    W, ids = accel.W, accel.tri_ids
+    W, ids = accel.real_rows()
     n = ro.shape[0]
     c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl, scaled)
     args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
@@ -311,9 +464,9 @@ def _check_k5(accel, ro, rd, excl, scaled, tag):
 
 def phase_culled(scene):
     """K4 / K5 against their plain versions and K1 / K2 on one prepass
-    chunk's batches; median times."""
+    chunk's batches; median times and bounds."""
     accel = ops_intersect.build_accel(scene)
-    W, ids = accel.W, accel.tri_ids
+    W, ids = accel.real_rows()
     (ro, rd), (sp, wl, dist, sexcl) = prepass_batches(scene, main_cfg())
     out = []
 
@@ -339,11 +492,13 @@ def phase_culled(scene):
     ms = time_ms(lambda: intersect_cuda.nearest_hit_culled(*args))
     pms = time_ms(lambda: intersect_cuda.nearest_hit_culled_plain(*args), reps=5)
     k1ms = time_ms(lambda: intersect_cuda.nearest_hit(g, W, ids, excl))
-    log(f"[culled] K4 {ms:.3f} ms, plain {pms:.3f} ms; K1 on the same rays {k1ms:.3f} ms")
-    out.append(dict(name="K4 nearest_hit_culled", route="cuda",
-                    source="monte_carlo_path_tracing_tpu_torch/csrc/intersect.cu",
-                    replaces="monte_carlo_path_tracing_tpu/ops/intersect_pallas.py:175",
-                    max_abs_err=err, ms=ms, plain_ms=pms))
+    pairs = nearest_culled_pairs(c, torch.where(hp.valid, hp.t, c.bound), n)
+    bms, by = bound(pairs * OPS["pair"], nbytes(*args) + c.g.shape[0] * 16)
+    log(f"[culled] K4 {ms:.3f} ms, plain {pms:.3f} ms; K1 on the same rays {k1ms:.3f} ms; "
+        f"{pairs} pairs needed ({pairs / (n * W.shape[0]):.3f} of all), bound {bms:.4f} ms "
+        f"({by}), share {bms / ms:.3f}")
+    out.append(_entry("K4 nearest_hit_culled", "intersect.cu", "intersect_pallas.py:175", err,
+                      ms, pms, bms, by))
 
     # K5 on the chunk's depth-0 shadow batch, as the prepass hands it over.
     # No ray of it is blocked (Veach's lights see the plates unobstructed),
@@ -368,12 +523,13 @@ def phase_culled(scene):
     ms = time_ms(lambda: intersect_cuda.occluded_culled(*args))
     pms = time_ms(lambda: intersect_cuda.occluded_culled_plain(*args), reps=5)
     k2ms = time_ms(lambda: intersect_cuda.occluded(gs, W, ids, sexcl, scaled))
+    pairs = anyhit_pairs(*args[:5], order=args[5], te=args[6])
+    bms, by = bound(pairs * OPS["anyhit_pair"], nbytes(*args) + args[0].shape[0] * 4)
     log(f"[culled] K5 (prepass batch) {ms:.3f} ms, plain {pms:.3f} ms; K2 on the same rays "
-        f"{k2ms:.3f} ms")
-    out.append(dict(name="K5 occluded_culled", route="cuda",
-                    source="monte_carlo_path_tracing_tpu_torch/csrc/intersect.cu",
-                    replaces="monte_carlo_path_tracing_tpu/ops/intersect_pallas.py:229",
-                    max_abs_err=float(d_main + d_moved > 0), ms=ms, plain_ms=pms))
+        f"{k2ms:.3f} ms; {pairs} pairs needed ({pairs / (n * W.shape[0]):.3f} of all), bound "
+        f"{bms:.4f} ms ({by}), share {bms / ms:.3f}")
+    out.append(_entry("K5 occluded_culled", "intersect.cu", "intersect_pallas.py:229",
+                      float(d_main + d_moved > 0), ms, pms, bms, by))
     return out
 
 
@@ -457,7 +613,7 @@ def phase_two_devices(scene_cpu):
 def main():
     name, smi = phase_device()
     phase_build()
-    scene_cpu = load_scene(VEACH)
+    scene_cpu = load_scene(VEACH, device="cpu")
     scene = with_res(scene_cpu, RES, RES).to("cuda")
     kernels = phase_kernels(scene) + phase_culled(scene)
     phase_end_to_end(scene, cached=False)

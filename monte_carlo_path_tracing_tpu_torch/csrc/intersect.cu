@@ -20,34 +20,67 @@
 // whether any accepted triangle has t' < tmax |det| (tmax pre-scaled by
 // the caller's occlusion margin).
 //
-// What bounds it on this card. Every (ray, triangle) pair costs ~40 f32
-// multiplies, ~36 adds and the accept test, and reads 40 floats of W that
-// all rays share: at the main path's 32k rays x 3.1k triangles the kernels
-// are bound by f32 issue rate, not by memory. What matters, as on the TPU,
-// is that the [rays, triangles] candidate field never reaches device
-// memory. Design:
-//   - W and the ids are staged through shared memory in tiles of
-//     TILE triangles; every thread reads them as broadcasts;
-//   - GROUP threads share one ray and take interleaved triangles of each
-//     tile, which keeps enough warps resident at 32k rays; their partial
-//     (t, index) results are merged with shuffles (min t, then lowest
-//     index), which equals the sequential strict-'<' order;
-//   - K2 leaves a tile loop once every ray of the block is blocked.
-//
-// Exact f32: the dot products are the ordered sums k = 0..9 of the plain
-// torch version (ops/intersect_cuda.py), built with -fmad=false so nvcc
-// contracts no multiply-add; division and comparisons are IEEE. No tensor
-// cores and no library kernels.
+// What bounds K1 / K2 on this card. Every (ray, triangle) pair costs about
+// 90 f32 operations (four 10-term dots: 40 multiplies and 36 adds; the sign
+// fix and the margin test about 14) and reads the triangle's 40 floats of
+// W, which all rays share. At the loop's 32,768-65,536 rays x 3,136
+// triangles a call moves a few MB, under a microsecond at 3.35 TB/s, and
+// needs ~0.14-0.28 ms at the 67 TFLOP/s f32 peak: compute-bound. As on the
+// TPU, the [rays, triangles] candidate field never reaches device memory.
+// Design, against what held the first design back:
+//   - register-blocked rays: each thread holds R = RB_R = 4 rays (10
+//     features, best t, best index, excluded id each) and applies every
+//     triangle it reads to all R, so a triangle costs 10 float4 shared loads
+//     per R pairs (40 scalar loads per pair before) and a thread has 4R
+//     independent multiply-add chains to issue. R = 4 beat 2 and 8 at both
+//     65,536 and 32,768 rays on an H100 (PERF.md);
+//   - fused multiply-adds: the dots are __fmaf_rn chains in the order
+//     k = 0..9 (10 instructions per dot, not 19). The intrinsic holds under
+//     the library's -fmad=false, which keeps the rest of the library (the
+//     margin test, winner recovery, K3-K5) separately rounded. For an equal
+//     winner, t, u and v are bit-equal to the plain version; only pairs
+//     whose margin lies within an ulp of zero can decide differently. The
+//     separately rounded dots stay as an instance (fma = 0) for comparison;
+//   - RB_G = 4 threads share a block of rays and take interleaved
+//     triangles of each tile (rows 160 bytes apart: the four float4 loads of
+//     a warp hit distinct banks); their partial (t, index) results merge by
+//     shuffles, min t then lowest index, which equals the sequential
+//     strict-'<' order. A CTA of 128 threads holds 128 rays, so
+//     32,768 and 65,536 rays give 256 and 512 CTAs for 132 SMs;
+//   - asynchronous staging: tiles of RB_TILE triangles of W (contiguous,
+//     rows 16-byte aligned) arrive by one Hopper bulk copy each
+//     (cp.async.bulk, completion on an mbarrier, issued by one thread) into
+//     a ring of RB_STAGES stages, so tile k+1 lands while tile k is
+//     computed. The ragged last tile is a shorter copy (160 bytes a row).
+//     Triangle ids are not staged: the excluded-id test runs only for pairs
+//     that pass the margin test, reading the id through the read-only cache;
+//   - padding rows: the caller hands over the accel's real rows only
+//     (ops/intersect.py), so the 448 never-accepted rows of Veach's padded
+//     accel cost nothing;
+//   - one branch for R rays: the margin tests of a triangle's R pairs are
+//     predicates ORed together, and only when one passes does the thread
+//     divide, read the id and update; the pair loop is unrolled twice so
+//     one triangle's shared loads overlap the other's arithmetic;
+//   - K2 ORs in place of the running minimum; a thread stops computing once
+//     its R rays are blocked, and the CTA leaves the tile loop once all its
+//     rays are (__syncthreads_and), after waiting for the bulk copies still
+//     in flight into its shared memory.
+// What is left: the common path issues ~55 instructions per pair (K1 at
+// R = 4: 36 FFMA and 5 FMUL, ~11 for the sign fix and margin test, 2.5
+// shared loads; K2 ~59; chip_sass.py counts them), against the ~45 issue
+// slots per pair the bound allows, so at best ~80% of it.
+// Not used: the four dots are a [rays, 10] x [10, 4 x triangles] product,
+// but tensor cores reach f32 only as TF32, which drops 13 mantissa bits; the
+// margin test then flips (a ~0.4% coefficient error once moved the
+// framebuffer checksum by 11%, ROADMAP.md). The kernels stay exact f32 on
+// the CUDA cores. No library kernels.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 256;              // triangles staged per step
-constexpr int GROUP = 4;               // threads per ray
-constexpr int BLOCK = 256;             // threads per block
-constexpr int RAYS = BLOCK / GROUP;    // rays per block
+constexpr int TILE = 256;              // triangles per staged tile (K4 / K5)
 constexpr float BIG_T = 3.0e38f;
 constexpr float DET_EPS = 1e-9f;
 
@@ -99,100 +132,297 @@ __device__ __forceinline__ void recover(const float* gr, const float* W,
   id_out[ray] = ids[idx];
 }
 
-__device__ __forceinline__ void stage(float* sW, int* sId, const float* W,
-                                      const int* ids, int base, int n) {
-  for (int i = threadIdx.x; i < n * 40; i += BLOCK) sW[i] = W[base * 40 + i];
-  for (int i = threadIdx.x; i < n; i += BLOCK) sId[i] = ids[base + i];
+// ---------------------------------------------------------------------------
+// K1 / K2: register-blocked rays, fused dots, bulk-copied triangle tiles.
+
+constexpr int RB_R = 4;                        // rays per thread
+constexpr int RB_G = 4;                        // threads per block of rays
+constexpr int RB_THREADS = 128;                // threads per CTA
+constexpr int RB_SLOTS = RB_THREADS / RB_G;    // blocks of rays per CTA
+constexpr int RB_TILE = 128;                   // triangles per staged tile
+constexpr int RB_STAGES = 2;                   // tiles in flight
+constexpr int RB_ROW_BYTES = 40 * 4;           // one triangle's W
+constexpr int RB_SMEM = RB_STAGES * RB_TILE * RB_ROW_BYTES;   // 40,960 bytes
+
+// Hopper's asynchronous copy and barrier instructions (PTX).
+__device__ __forceinline__ uint32_t ptx_smem(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ptx_mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(ptx_smem(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+// One copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory that completes on `bar`; the calling
+// thread's arrival on `bar` announces the bytes first. The proxy fence
+// orders the CTA's earlier reads of dst before the copy overwrites it.
+__device__ __forceinline__ void ptx_bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(ptx_smem(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      :: "r"(ptx_smem(dst)), "l"(src), "r"(bytes), "r"(ptx_smem(bar)) : "memory");
+}
+// Block until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void ptx_mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;"
+        " selp.u32 %0, 1, 0, p; }"
+        : "=r"(done) : "r"(ptx_smem(bar)), "r"(parity) : "memory");
 }
 
-__global__ void __launch_bounds__(BLOCK)
+// The staging ring: tile k of W goes into stage k % RB_STAGES by one bulk
+// copy that thread 0 issues; full[stage] completes when its bytes landed.
+struct Ring {
+  const float* W;
+  float4* tiles;                       // RB_STAGES x RB_TILE rows of W
+  uint64_t* full;
+  int T, ntiles;
+
+  __device__ int rows(int k) const { return min(RB_TILE, T - k * RB_TILE); }
+  __device__ float4* tile(int k) const { return tiles + (k % RB_STAGES) * (RB_TILE * 10); }
+  __device__ void issue(int k) const {
+    ptx_bulk_copy(tile(k), W + (size_t)k * RB_TILE * 40, rows(k) * RB_ROW_BYTES,
+                  &full[k % RB_STAGES]);
+  }
+  // Thread 0 sets up the barriers and fills the ring; every thread passes
+  // the CTA barrier after it.
+  __device__ void start() const {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < RB_STAGES; ++s) ptx_mbar_init(&full[s]);
+      for (int k = 0; k < min(RB_STAGES, ntiles); ++k) issue(k);
+    }
+    __syncthreads();
+  }
+  __device__ void wait(int k) const {
+    ptx_mbar_wait(&full[k % RB_STAGES], (k / RB_STAGES) & 1);
+  }
+  // After every thread is done with tile k: refill its stage.
+  __device__ void advance(int k) const {
+    if (threadIdx.x == 0 && k + RB_STAGES < ntiles) issue(k + RB_STAGES);
+  }
+  // Leaving after tile k: wait for the copies still in flight.
+  __device__ void drain(int k) const {
+    for (int j = k + 1; j < min(k + RB_STAGES, ntiles); ++j) wait(j);
+  }
+};
+
+template <bool FMA>
+__device__ __forceinline__ float madd(float a, float b, float acc) {
+  return FMA ? __fmaf_rn(a, b, acc) : __fadd_rn(acc, __fmul_rn(a, b));
+}
+
+// acc[r][c] = g[r] . W[:, c] for one triangle (rows w[0..9]), in the order
+// k = 0..9: fused (FMA) or separately rounded, as the plain version.
+template <bool FMA>
+__device__ __forceinline__ void dots(const float (&g)[RB_R][10], const float4* w,
+                                     float (&acc)[RB_R][4]) {
+  const float4 w0 = w[0];
+#pragma unroll
+  for (int r = 0; r < RB_R; ++r) {
+    acc[r][0] = __fmul_rn(g[r][0], w0.x);
+    acc[r][1] = __fmul_rn(g[r][0], w0.y);
+    acc[r][2] = __fmul_rn(g[r][0], w0.z);
+    acc[r][3] = __fmul_rn(g[r][0], w0.w);
+  }
+#pragma unroll
+  for (int k = 1; k < 10; ++k) {
+    const float4 wk = w[k];
+#pragma unroll
+    for (int r = 0; r < RB_R; ++r) {
+      acc[r][0] = madd<FMA>(g[r][k], wk.x, acc[r][0]);
+      acc[r][1] = madd<FMA>(g[r][k], wk.y, acc[r][1]);
+      acc[r][2] = madd<FMA>(g[r][k], wk.z, acc[r][2]);
+      acc[r][3] = madd<FMA>(g[r][k], wk.w, acc[r][3]);
+    }
+  }
+}
+
+// accept() without the id test, on the dots (det, u', v', t') of one pair:
+// the sign fix flips sign bits (det != 0 wherever it matters) and each
+// "a - b >= 0" is "a >= b", both exact in IEEE f32, so the decision, tp and
+// adet equal accept()'s bit for bit on the same dots.
+__device__ __forceinline__ bool margin_ok(const float (&a)[4], float t_eps,
+                                          float& tp, float& adet) {
+  const uint32_t sb = __float_as_uint(a[0]) & 0x80000000u;
+  adet = fabsf(a[0]);
+  const float up = __uint_as_float(__float_as_uint(a[1]) ^ sb);
+  const float vp = __uint_as_float(__float_as_uint(a[2]) ^ sb);
+  tp = __uint_as_float(__float_as_uint(a[3]) ^ sb);
+  return (up >= 0.0f) & (vp >= 0.0f) & (adet >= up + vp) & (tp >= t_eps * adet) &
+         (adet >= DET_EPS);
+}
+
+// Ray r of thread slot `slot` in this CTA.
+__device__ __forceinline__ int rb_ray(int slot, int r) {
+  return blockIdx.x * (RB_SLOTS * RB_R) + r * RB_SLOTS + slot;
+}
+
+__device__ __forceinline__ void load_rays(const float* g, const int* excl, int N,
+                                          int slot, float (&gr)[RB_R][10], int (&ex)[RB_R]) {
+#pragma unroll
+  for (int r = 0; r < RB_R; ++r) {
+    const int ray = rb_ray(slot, r);
+    const bool active = ray < N;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) gr[r][k] = active ? g[(size_t)ray * 10 + k] : 0.0f;
+    ex[r] = active ? excl[ray] : -1;
+  }
+}
+
+template <bool FMA>
+__global__ void __launch_bounds__(RB_THREADS)
 nearest_kernel(const float* __restrict__ g, const float* __restrict__ W,
                const int* __restrict__ ids, const int* __restrict__ excl,
                int N, int T, float t_eps, float* __restrict__ t_out,
                float* __restrict__ u_out, float* __restrict__ v_out,
                int* __restrict__ id_out) {
-  __shared__ float sW[TILE * 40];
-  __shared__ int sId[TILE];
-  const int ray = blockIdx.x * RAYS + threadIdx.x / GROUP;
-  const int lane = threadIdx.x % GROUP;
-  const bool active = ray < N;
-  float gr[10];
+  extern __shared__ float4 rb_tiles[];
+  __shared__ uint64_t full[RB_STAGES];
+  const int slot = threadIdx.x / RB_G;
+  const int lane = threadIdx.x % RB_G;
+  float gr[RB_R][10];
+  int ex[RB_R];
+  load_rays(g, excl, N, slot, gr, ex);
+  float best_t[RB_R];
+  int best_i[RB_R];
 #pragma unroll
-  for (int k = 0; k < 10; ++k) gr[k] = active ? g[ray * 10 + k] : 0.0f;
-  const int ex = active ? excl[ray] : -1;
+  for (int r = 0; r < RB_R; ++r) {
+    best_t[r] = BIG_T;
+    best_i[r] = -1;
+  }
 
-  float best_t = BIG_T;
-  int best_i = -1;
-  for (int base = 0; base < T; base += TILE) {
-    const int n = min(TILE, T - base);
-    __syncthreads();
-    stage(sW, sId, W, ids, base, n);
-    __syncthreads();
-    for (int k = lane; k < n; k += GROUP) {
-      float tp, adet;
-      if (accept(gr, &sW[k * 40], sId[k], ex, t_eps, &tp, &adet)) {
-        const float t = tp / adet;
-        if (t < best_t) {
-          best_t = t;
-          best_i = base + k;
+  const Ring ring{W, rb_tiles, full, T, (T + RB_TILE - 1) / RB_TILE};
+  ring.start();
+  for (int k = 0; k < ring.ntiles; ++k) {
+    ring.wait(k);
+    const float4* tile = ring.tile(k);
+    const float4* end = tile + ring.rows(k) * 10;
+#pragma unroll 2                     // two triangles a pass: loads overlap
+    for (const float4* w = tile + lane * 10; w < end; w += RB_G * 10) {
+      float acc[RB_R][4], tp[RB_R], adet[RB_R];
+      bool ok[RB_R], any = false;
+      dots<FMA>(gr, w, acc);
+#pragma unroll
+      for (int r = 0; r < RB_R; ++r) {
+        ok[r] = margin_ok(acc[r], t_eps, tp[r], adet[r]);
+        any |= ok[r];
+      }
+      if (!any) continue;              // most pairs: one branch for R rays
+      const int idx = k * RB_TILE + static_cast<int>(w - tile) / 10;
+      const int id = __ldg(ids + idx);
+#pragma unroll
+      for (int r = 0; r < RB_R; ++r) {
+        if (!ok[r]) continue;
+        const float t = tp[r] / adet[r];
+        if (t < best_t[r] && id != ex[r]) {
+          best_t[r] = t;
+          best_i[r] = idx;
         }
       }
     }
+    __syncthreads();                   // every thread is done with tile k
+    ring.advance(k);
   }
-  // Merge the GROUP partial results: min t, ties to the lowest index.
+  // Merge the RB_G partial results of each ray: min t, ties to the lowest
+  // index.
 #pragma unroll
-  for (int off = 1; off < GROUP; off <<= 1) {
-    const float ot = __shfl_xor_sync(0xffffffffu, best_t, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
-    if (ot < best_t || (ot == best_t && oi < best_i)) {
-      best_t = ot;
-      best_i = oi;
+  for (int r = 0; r < RB_R; ++r) {
+#pragma unroll
+    for (int off = 1; off < RB_G; off <<= 1) {
+      const float ot = __shfl_xor_sync(0xffffffffu, best_t[r], off);
+      const int oi = __shfl_xor_sync(0xffffffffu, best_i[r], off);
+      if (ot < best_t[r] || (ot == best_t[r] && oi < best_i[r])) {
+        best_t[r] = ot;
+        best_i[r] = oi;
+      }
     }
   }
-  if (!active || lane != 0) return;
-  recover(gr, W, ids, best_i, ray, t_out, u_out, v_out, id_out);
+  if (lane != 0) return;
+#pragma unroll
+  for (int r = 0; r < RB_R; ++r) {
+    const int ray = rb_ray(slot, r);
+    if (ray < N) recover(gr[r], W, ids, best_i[r], ray, t_out, u_out, v_out, id_out);
+  }
 }
 
-__global__ void __launch_bounds__(BLOCK)
+template <bool FMA>
+__global__ void __launch_bounds__(RB_THREADS)
 occluded_kernel(const float* __restrict__ g, const float* __restrict__ W,
                 const int* __restrict__ ids, const int* __restrict__ excl,
                 const float* __restrict__ tmax, int N, int T, float t_eps,
                 int* __restrict__ out) {
-  __shared__ float sW[TILE * 40];
-  __shared__ int sId[TILE];
-  const int ray = blockIdx.x * RAYS + threadIdx.x / GROUP;
-  const int lane = threadIdx.x % GROUP;
-  const bool active = ray < N;
-  float gr[10];
+  extern __shared__ float4 rb_tiles[];
+  __shared__ uint64_t full[RB_STAGES];
+  const int slot = threadIdx.x / RB_G;
+  const int lane = threadIdx.x % RB_G;
+  const unsigned group_mask = ((1u << RB_G) - 1u) << ((threadIdx.x % 32) & ~(RB_G - 1));
+  float gr[RB_R][10];
+  int ex[RB_R];
+  load_rays(g, excl, N, slot, gr, ex);
+  float tm[RB_R];
+  bool blocked[RB_R];                  // rays past N count as settled
 #pragma unroll
-  for (int k = 0; k < 10; ++k) gr[k] = active ? g[ray * 10 + k] : 0.0f;
-  const int ex = active ? excl[ray] : -1;
-  const float tm = active ? tmax[ray] : 0.0f;
-  const unsigned group_mask = ((1u << GROUP) - 1u) << ((threadIdx.x % 32) & ~(GROUP - 1));
+  for (int r = 0; r < RB_R; ++r) {
+    const int ray = rb_ray(slot, r);
+    tm[r] = ray < N ? tmax[ray] : 0.0f;
+    blocked[r] = ray >= N;
+  }
 
-  bool blocked = false;
-  for (int base = 0; base < T; base += TILE) {
-    // Every ray of the block settled: nothing left to prove.
-    if (__syncthreads_and(blocked || !active)) break;
-    const int n = min(TILE, T - base);
-    stage(sW, sId, W, ids, base, n);
-    __syncthreads();
-    if (!blocked) {
-      for (int k = lane; k < n; k += GROUP) {
+  const Ring ring{W, rb_tiles, full, T, (T + RB_TILE - 1) / RB_TILE};
+  ring.start();
+  for (int k = 0; k < ring.ntiles; ++k) {
+    ring.wait(k);
+    const float4* tile = ring.tile(k);
+    const float4* end = tile + ring.rows(k) * 10;
+    bool settled = true;
+#pragma unroll
+    for (int r = 0; r < RB_R; ++r) settled = settled && blocked[r];
+#pragma unroll 2
+    for (const float4* w = tile + lane * 10; w < end && !settled; w += RB_G * 10) {
+      float acc[RB_R][4];
+      bool hit[RB_R], any = false;
+      dots<FMA>(gr, w, acc);
+#pragma unroll
+      for (int r = 0; r < RB_R; ++r) {
         float tp, adet;
-        if (accept(gr, &sW[k * 40], sId[k], ex, t_eps, &tp, &adet) &&
-            tp < tm * adet) {
-          blocked = true;
-          break;
-        }
+        hit[r] = margin_ok(acc[r], t_eps, tp, adet) & (tp < tm[r] * adet);
+        any |= hit[r];
+      }
+      if (!any) continue;              // most pairs: one branch for R rays
+      const int id = __ldg(ids + k * RB_TILE + static_cast<int>(w - tile) / 10);
+      settled = true;
+#pragma unroll
+      for (int r = 0; r < RB_R; ++r) {
+        blocked[r] |= hit[r] & (id != ex[r]);
+        settled &= blocked[r];
       }
     }
-    // Share the verdict inside the ray's group.
-    blocked = (__ballot_sync(0xffffffffu, blocked) & group_mask) != 0u;
+    // Share the verdicts inside each ray's group of RB_G threads.
+    settled = true;
+#pragma unroll
+    for (int r = 0; r < RB_R; ++r) {
+      blocked[r] = (__ballot_sync(0xffffffffu, blocked[r]) & group_mask) != 0u;
+      settled = settled && blocked[r];
+    }
+    // Every thread is done with tile k; leave once every ray is blocked.
+    if (__syncthreads_and(settled)) {
+      ring.drain(k);
+      break;
+    }
+    ring.advance(k);
   }
-  if (active && lane == 0) out[ray] = blocked ? 1 : 0;
+  if (lane != 0) return;
+#pragma unroll
+  for (int r = 0; r < RB_R; ++r) {
+    const int ray = rb_ray(slot, r);
+    if (ray < N) out[ray] = blocked[r] ? 1 : 0;
+  }
 }
-
 
 // ---------------------------------------------------------------------------
 // K4 / K5: culled nearest hit and any hit on a visit schedule.
@@ -204,7 +434,7 @@ occluded_kernel(const float* __restrict__ g, const float* __restrict__ W,
 // cannot touch have te = BIG_T). One CTA runs one ray tile, CULL_G threads
 // per ray taking interleaved triangles of each tile; each visited triangle
 // tile (tile <= TILE triangles, 40 floats + id each, ~41 KB) is staged through
-// shared memory as in K1.
+// shared memory by plain loads of all threads.
 //
 // K4 visits tile k iff the largest best t of the CTA's rays is >= te[k];
 // te ascends and best t only falls, so the first tile that fails ends the
@@ -332,26 +562,39 @@ inline bool culled_args_ok(int nrt, int nb, int tile) {
   return nrt > 0 && nb > 0 && tile > 0 && tile <= TILE;
 }
 
+// CTAs for N rays, or 0 when the call is not valid (W must be 16-byte
+// aligned for the bulk copies).
+int rb_blocks(int N, int T, const float* W) {
+  if (T < 0 || reinterpret_cast<uintptr_t>(W) % 16) return 0;
+  return (N + RB_SLOTS * RB_R - 1) / (RB_SLOTS * RB_R);
+}
+
 }  // namespace
 
+// fma: 1 for fused dots, 0 for separately rounded ones (the plain version's
+// arithmetic, bit for bit).
 extern "C" int mcpt_nearest(const float* g, const float* W, const int* ids,
                             const int* excl, int N, int T, float t_eps,
-                            float* t, float* u, float* v, int* tri_id,
+                            float* t, float* u, float* v, int* tri_id, int fma,
                             void* stream) {
   if (N <= 0) return 0;
-  const int blocks = (N + RAYS - 1) / RAYS;
-  nearest_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-      g, W, ids, excl, N, T, t_eps, t, u, v, tri_id);
+  const int blocks = rb_blocks(N, T, W);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  auto fn = fma ? nearest_kernel<true> : nearest_kernel<false>;
+  fn<<<blocks, RB_THREADS, RB_SMEM, (cudaStream_t)stream>>>(g, W, ids, excl, N, T, t_eps,
+                                                            t, u, v, tri_id);
   return (int)cudaGetLastError();
 }
 
 extern "C" int mcpt_occluded(const float* g, const float* W, const int* ids,
                              const int* excl, const float* tmax, int N, int T,
-                             float t_eps, int* blocked, void* stream) {
+                             float t_eps, int* blocked, int fma, void* stream) {
   if (N <= 0) return 0;
-  const int blocks = (N + RAYS - 1) / RAYS;
-  occluded_kernel<<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
-      g, W, ids, excl, tmax, N, T, t_eps, blocked);
+  const int blocks = rb_blocks(N, T, W);
+  if (blocks == 0) return (int)cudaErrorInvalidValue;
+  auto fn = fma ? occluded_kernel<true> : occluded_kernel<false>;
+  fn<<<blocks, RB_THREADS, RB_SMEM, (cudaStream_t)stream>>>(g, W, ids, excl, tmax, N, T,
+                                                            t_eps, blocked);
   return (int)cudaGetLastError();
 }
 

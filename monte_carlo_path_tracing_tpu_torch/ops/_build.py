@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-nvcc compiles every source of ``csrc/`` into one shared library with a
+nvcc compiles every source of ``csrc/`` to an object, one process per
+source and all at once, and links them into one shared library with a
 plain C interface, which is loaded with ctypes (no PyTorch headers, so a
 build takes seconds). The library lands in ``build/torch_kernels/<key>/``
 beside the package, keyed by a hash of the sources and flags, so a changed
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -23,17 +25,19 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 
 #: sm_90a: Hopper. -fmad=false keeps every multiply and add separately
-#: rounded, as in the plain torch versions the kernels are held against.
+#: rounded, as in the plain torch versions the kernels are held against;
+#: K1 / K2 fuse their dots explicitly (__fmaf_rn), which the flag leaves be.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C entry points and their argument types; each returns a cudaError_t.
 SIGNATURES = {
-    "mcpt_nearest": (_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P),
-    "mcpt_occluded": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    # K1 / K2: ..., fma (1: fused dots), stream
+    "mcpt_nearest": (_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _P),
+    "mcpt_occluded": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P),
     "mcpt_arvo_select": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
     "mcpt_nearest_culled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                             _P, _P, _P, _P, _P),
@@ -94,17 +98,28 @@ def load() -> KernelLibrary:
         _LIB = KernelLibrary(lib_path, "", 0.0)
         return _LIB
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib_path)
+    work = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        nvcc, srcs = _nvcc(), _sources()
+        objs = [work / f"{src.stem}.o" for src in srcs]
+        t0 = time.perf_counter()
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)] for o, src in zip(objs, srcs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        if all(p.returncode == 0 for p in procs):
+            cmds.append([nvcc, "-shared", "-o", str(work / lib_path.name), *map(str, objs)])
+            procs.append(subprocess.run(cmds[-1], stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True))
+            outs.append(procs[-1].stdout)
+        seconds = time.perf_counter() - t0
+        for c, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{out}")
+        os.replace(work / lib_path.name, lib_path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log = "".join(outs)
     _LIB = KernelLibrary(lib_path, log, seconds)
     return _LIB
 

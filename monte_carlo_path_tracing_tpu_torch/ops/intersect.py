@@ -5,7 +5,8 @@ Counterpart of ``monte_carlo_path_tracing_tpu/ops/intersect.py``. The
 centroids (so consecutive triangles are spatially compact), padded to a
 multiple of ``TRI_BLOCK``, with per-triangle AABBs in the same order.
 :func:`intersect` and :func:`occluded` run through ``ops/intersect_cuda.py``:
-the all-pairs kernels K1 / K2 by default, the culled kernels K4 / K5 with
+the all-pairs kernels K1 / K2 on the real rows by default, the culled
+kernels K4 / K5 on the padded arrays with
 ``cull=True`` (coherent batches: camera fans and the primary pre-pass's
 shadow batches) — kernels for CUDA tensors, their plain torch versions for
 CPU tensors.
@@ -50,6 +51,15 @@ class TriAccel:
     # accels) disables culling, as in JAX.
     aabb_lo: torch.Tensor | None = None  # [Tpad, 3]
     aabb_hi: torch.Tensor | None = None  # [Tpad, 3]
+    # Real (unpadded) rows, a Python int so that slicing needs no host
+    # sync; None (hand-built accels): every row.
+    num_tris: int | None = None
+
+    def real_rows(self):
+        """(W, tri_ids) without the padding rows, which are never accepted:
+        what the all-pairs kernels K1 / K2 are handed."""
+        n = self.W.shape[0] if self.num_tris is None else self.num_tris
+        return self.W[:n], self.tri_ids[:n]
 
 
 def _spread10(x: torch.Tensor) -> torch.Tensor:  # 10 bits -> every 3rd bit of 30
@@ -88,7 +98,7 @@ def _build(v0, e1, e2, ids, block: int) -> TriAccel:
         lo = torch.cat([lo, torch.full((pad, 3), float("inf"), device=dev)])
         hi = torch.cat([hi, torch.full((pad, 3), float("-inf"), device=dev)])
     return TriAccel(W=W.contiguous(), tri_ids=ids.contiguous(),
-                    aabb_lo=lo.contiguous(), aabb_hi=hi.contiguous())
+                    aabb_lo=lo.contiguous(), aabb_hi=hi.contiguous(), num_tris=T)
 
 
 def build_accel(scene: Scene, block: int = TRI_BLOCK) -> TriAccel:
@@ -173,7 +183,7 @@ def intersect(
     excl = _exclude(exclude_id, N, ro.device)
     if not cull or accel.aabb_lo is None:
         g = ray_features(ro, rd).contiguous()
-        return intersect_cuda.nearest_hit(g, accel.W, accel.tri_ids, excl, t_eps)
+        return intersect_cuda.nearest_hit(g, *accel.real_rows(), excl, t_eps)
     best = None
     for sl in _chunks(accel):
         c = culled_call(accel, sl, ro, rd, excl, t_eps=t_eps)
@@ -207,7 +217,7 @@ def occluded(
     scaled = (t_max * (1.0 - OCCLUSION_MARGIN)).to(torch.float32).contiguous()
     if not cull or accel.aabb_lo is None:
         g = ray_features(ro, rd).contiguous()
-        return intersect_cuda.occluded(g, accel.W, accel.tri_ids, excl, scaled, t_eps)
+        return intersect_cuda.occluded(g, *accel.real_rows(), excl, scaled, t_eps)
     blocked = None
     for sl in _chunks(accel):
         c = culled_call(accel, sl, ro, rd, excl, scaled, t_eps=t_eps)

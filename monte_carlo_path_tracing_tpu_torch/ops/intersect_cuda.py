@@ -113,6 +113,12 @@ def _check_cuda(name, **tensors):
     return N, T
 
 
+def _check_aligned(name, W):
+    """K1 / K2 copy tiles of W with Hopper bulk copies: 16-byte aligned."""
+    if W.data_ptr() % 16:
+        raise ValueError(f"{name}: W must be 16-byte aligned")
+
+
 def _route(g: torch.Tensor, name: str) -> bool:
     """True for the kernel (CUDA), False for the plain version (CPU)."""
     if g.device.type == "cuda":
@@ -122,13 +128,15 @@ def _route(g: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: unsupported device {g.device}")
 
 
-def nearest_hit(g, W, tri_ids, excl, t_eps: float = T_EPS) -> Hit:
+def nearest_hit(g, W, tri_ids, excl, t_eps: float = T_EPS, *, fma: bool = True) -> Hit:
     """Nearest hit of rays ``g`` [N,10] against packed triangles ``W``
     [T,10,4] (accel order) with ids ``tri_ids`` [T] and per-ray excluded
-    ids ``excl`` [N]. CUDA tensors: K1; CPU tensors: the plain version."""
+    ids ``excl`` [N]. CUDA tensors: K1, with fused (``fma``) or separately
+    rounded dots; CPU tensors: the plain version."""
     if not _route(g, "nearest_hit"):
         return nearest_hit_plain(g, W, tri_ids, excl, t_eps)
     N, T = _check_cuda("nearest_hit", g=g, W=W, tri_ids=tri_ids, excl=excl)
+    _check_aligned("nearest_hit", W)
     lib = _build.load()
     t = torch.empty(N, dtype=torch.float32, device=g.device)
     u, v = torch.empty_like(t), torch.empty_like(t)
@@ -136,25 +144,27 @@ def nearest_hit(g, W, tri_ids, excl, t_eps: float = T_EPS) -> Hit:
     err = lib.mcpt_nearest(
         g.data_ptr(), W.data_ptr(), tri_ids.data_ptr(), excl.data_ptr(), N, T,
         float(t_eps), t.data_ptr(), u.data_ptr(), v.data_ptr(), tid.data_ptr(),
-        torch.cuda.current_stream(g.device).cuda_stream,
+        int(fma), torch.cuda.current_stream(g.device).cuda_stream,
     )
     _build.check(err, "nearest_hit (K1)")
     nearest_hit.launches += 1
     return Hit(t=t, tri_id=tid, u=u, v=v, valid=tid != NO_HIT)
 
 
-def occluded(g, W, tri_ids, excl, tmax, t_eps: float = T_EPS) -> torch.Tensor:
+def occluded(g, W, tri_ids, excl, tmax, t_eps: float = T_EPS, *,
+             fma: bool = True) -> torch.Tensor:
     """[N] bool: some accepted triangle lies at t < ``tmax`` (pre-scaled by
-    the occlusion margin). CUDA tensors: K2; CPU tensors: the plain
-    version."""
+    the occlusion margin). CUDA tensors: K2 (``fma`` as in
+    :func:`nearest_hit`); CPU tensors: the plain version."""
     if not _route(g, "occluded"):
         return occluded_plain(g, W, tri_ids, excl, tmax, t_eps)
     N, T = _check_cuda("occluded", g=g, W=W, tri_ids=tri_ids, excl=excl, tmax=tmax)
+    _check_aligned("occluded", W)
     lib = _build.load()
     out = torch.empty(N, dtype=torch.int32, device=g.device)
     err = lib.mcpt_occluded(
         g.data_ptr(), W.data_ptr(), tri_ids.data_ptr(), excl.data_ptr(),
-        tmax.data_ptr(), N, T, float(t_eps), out.data_ptr(),
+        tmax.data_ptr(), N, T, float(t_eps), out.data_ptr(), int(fma),
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     _build.check(err, "occluded (K2)")

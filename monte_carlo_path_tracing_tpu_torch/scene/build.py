@@ -30,8 +30,11 @@ def build_scene(
     scene_xml: ParsedSceneXML,
     camera: Optional[Camera] = None,
     fov_bug_compat: bool = False,
-    device=None,
+    device="cuda",
 ) -> Scene:
+    """The Scene of a parsed mesh and scene XML, its tensors on ``device``:
+    the card unless the caller names another (``device="cpu"``); without a
+    card the default raises."""
     verts = mesh.vertices
     fv = mesh.face_v            # [T,3]
     fvn = mesh.face_vn          # [T,3]
@@ -116,7 +119,8 @@ def build_scene(
 
 def load_scene(obj_path: str, xml_path: Optional[str] = None, **kw) -> Scene:
     """Load a cg23 scene: ``<name>.obj`` (+``.mtl`` via mtllib) +
-    ``<name>.xml``, with the pure-Python parser. ``device=`` places it."""
+    ``<name>.xml``, with the pure-Python parser, onto the card; ``device=``
+    places it elsewhere (``device="cpu"``)."""
     if xml_path is None:
         xml_path = os.path.splitext(obj_path)[0] + ".xml"
     return build_scene(parse_obj(obj_path), parse_scene_xml(xml_path), **kw)

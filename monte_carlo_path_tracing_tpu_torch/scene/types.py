@@ -110,11 +110,12 @@ SCENE_ARRAYS = (
 
 def scene_from_arrays(
     arrays: dict, width: int, height: int, fov_bug_compat: bool = False,
-    device=None,
+    device="cuda",
 ) -> Scene:
     """Build the port's Scene from numpy arrays keyed by :data:`SCENE_ARRAYS`
     — the state carried across from a JAX ``Scene``, so that both packages
-    can be handed the very same scene."""
+    can be handed the very same scene — on the card unless ``device=``
+    names another (``device="cpu"``)."""
     missing = [k for k in SCENE_ARRAYS if k not in arrays]
     if missing:
         raise KeyError(f"scene arrays missing {missing}")

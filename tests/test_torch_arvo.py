@@ -28,7 +28,8 @@ from test_torch_scene import scene_arrays, torch_single_thread  # noqa: F401  (a
 @pytest.fixture(scope="module")
 def scenes(veach_scene):
     cam = veach_scene.camera
-    return veach_scene, scene_from_arrays(scene_arrays(veach_scene), cam.width, cam.height)
+    return veach_scene, scene_from_arrays(scene_arrays(veach_scene), cam.width, cam.height,
+                                          device="cpu")
 
 
 

@@ -36,7 +36,7 @@ def dev():
 
 
 def _scene(name, wh=None):
-    sc = load_scene(os.path.join(SCENES, name, f"{name}.obj"))
+    sc = load_scene(os.path.join(SCENES, name, f"{name}.obj"), device="cpu")
     if wh:
         sc = dataclasses.replace(sc, camera=dataclasses.replace(sc.camera, width=wh, height=wh))
     return sc
@@ -58,19 +58,97 @@ def _rays(T, N, dev, seed=0):
 
 @pytest.mark.parametrize("T,N", [(1, 5), (300, 257), (3000, 4097)])
 def test_k1_k2_match_plain(dev, T, N):
-    """Same f32 arithmetic (ordered dots, -fmad=false): ids and blocked
-    flags equal, t / u / v to 1e-6."""
+    """With separately rounded dots K1 / K2 are the plain versions bit for
+    bit (ordered dots, -fmad=false). With fused dots (the default) ids and
+    flags may differ only on pairs whose margin is within an ulp of zero
+    (at most 0.1% of rays, one for small batches); t / u / v on equal ids
+    stay equal (winner recovery is separately rounded)."""
     g, W, ids, excl, tmax = _rays(T, N, dev, seed=T)
     n1, n2 = intersect_cuda.nearest_hit.launches, intersect_cuda.occluded.launches
     hk = intersect_cuda.nearest_hit(g, W, ids, excl)
     hp = intersect_cuda.nearest_hit_plain(g, W, ids, excl)
     assert (intersect_cuda.nearest_hit.launches, intersect_cuda.occluded.launches) == (n1 + 1, n2)
-    assert (hk.tri_id == hp.tri_id).all() and (hk.valid == hp.valid).all()
+    same = hk.tri_id == hp.tri_id
+    assert int((~same).sum()) <= max(1, N // 1000)
     for a, b in ((hk.t, hp.t), (hk.u, hp.u), (hk.v, hp.v)):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(a[same], b[same], rtol=1e-6, atol=1e-6)
+    hs = intersect_cuda.nearest_hit(g, W, ids, excl, fma=False)
+    for a, b in ((hs.tri_id, hp.tri_id), (hs.t, hp.t), (hs.u, hp.u), (hs.v, hp.v)):
+        assert torch.equal(a, b)
     bk = intersect_cuda.occluded(g, W, ids, excl, tmax)
     assert intersect_cuda.occluded.launches == n2 + 1
-    assert (bk == intersect_cuda.occluded_plain(g, W, ids, excl, tmax)).all()
+    bp = intersect_cuda.occluded_plain(g, W, ids, excl, tmax)
+    assert int((bk != bp).sum()) <= max(1, N // 1000)
+    assert torch.equal(intersect_cuda.occluded(g, W, ids, excl, tmax, fma=False), bp)
+
+
+#: K1 / K2: rays per CTA (128 threads, 4 rays each, 4 threads per block of
+#: rays: csrc/intersect.cu RB_THREADS, RB_R, RB_G); triangles per staged
+#: tile.
+RAYS_PER_CTA, TRI_TILE, RB_G = 128, 128, 4
+
+
+@pytest.mark.parametrize("N", [1, RAYS_PER_CTA - 1, RAYS_PER_CTA + 1, 65537])
+@pytest.mark.parametrize("T", [1, TRI_TILE - 1, TRI_TILE + 1])
+def test_k1_k2_ragged_sizes(dev, T, N):
+    """Ragged ray blocks and triangle tiles (the bulk copy of the last tile
+    is 160 bytes a row): separately rounded equals the plain version, fused
+    differs on the counted fringe only."""
+    g, W, ids, excl, tmax = _rays(T, N, dev, seed=N + T)
+    hp = intersect_cuda.nearest_hit_plain(g, W, ids, excl)
+    bp = intersect_cuda.occluded_plain(g, W, ids, excl, tmax)
+    hs = intersect_cuda.nearest_hit(g, W, ids, excl, fma=False)
+    assert torch.equal(hs.tri_id, hp.tri_id) and torch.equal(hs.t, hp.t)
+    assert torch.equal(intersect_cuda.occluded(g, W, ids, excl, tmax, fma=False), bp)
+    hk = intersect_cuda.nearest_hit(g, W, ids, excl)
+    assert int((hk.tri_id != hp.tri_id).sum()) <= max(1, N // 1000)
+    bk = intersect_cuda.occluded(g, W, ids, excl, tmax)
+    assert int((bk != bp).sum()) <= max(1, N // 1000)
+
+
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_k1_tie_rule_duplicated_rows(dev, shift):
+    """Every triangle twice over, the copy's ids + 2**20 and ``shift``
+    rows of copies between: K1's threads take a tile's rows by index mod
+    RB_G, so each triangle and its copy fall to different threads and the
+    shuffle merge settles the tie. The lowest index wins every tie, so no
+    hit lands on a copy."""
+    T, N = 700, 3000
+    assert T % RB_G == 0 and shift % RB_G
+    g, W, ids, _, _ = _rays(T, N, dev, seed=5)
+    excl = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    W2 = torch.cat([W, W[:shift], W]).contiguous()
+    ids2 = torch.cat([ids, ids[:shift] + (1 << 20), ids + (1 << 20)]).contiguous()
+    once = intersect_cuda.nearest_hit(g, W, ids, excl)
+    twice = intersect_cuda.nearest_hit(g, W2, ids2, excl)
+    assert bool(twice.valid.any()) and int((twice.tri_id >= (1 << 20)).sum()) == 0
+    assert torch.equal(twice.tri_id, once.tri_id)
+
+
+@pytest.mark.parametrize("where", [0, 150, 299])
+def test_k2_all_blocked_and_never_blocked(dev, where):
+    """Rays towards +z and a large triangle at z = 1 at index ``where`` of a
+    soup that lies beyond z = 20: every ray is blocked with t_max = 10 (the
+    CTAs' all-blocked exit), none with t_max = 0.5."""
+    g0 = np.random.default_rng(where)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    T, N = 300, 5000
+    v0 = np.concatenate([g0.uniform(-1, 1, (T, 2)), g0.uniform(20, 30, (T, 1))], -1)
+    v0[where] = [-50.0, -50.0, 1.0]
+    e1, e2 = g0.normal(size=(T, 3)), g0.normal(size=(T, 3))
+    e1[where], e2[where] = [200.0, 0.0, 0.0], [0.0, 200.0, 0.0]
+    W = intersect_ref.pack_tri_matrix(f(v0), f(e1), f(e2)).contiguous()
+    ro = np.concatenate([g0.uniform(-0.5, 0.5, (N, 2)), np.zeros((N, 1))], -1)
+    rd = np.tile([0.0, 0.0, 1.0], (N, 1)) + g0.normal(size=(N, 3)) * 0.05
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    g = intersect_ref.ray_features(f(ro), f(rd)).contiguous()
+    ids = torch.arange(T, dtype=torch.int32, device=dev)
+    excl = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    for t_max, want in ((10.0, True), (0.5, False)):
+        tmax = torch.full((N,), t_max, device=dev)
+        bp = intersect_cuda.occluded_plain(g, W, ids, excl, tmax)
+        assert bool((bp == want).all())
+        assert torch.equal(intersect_cuda.occluded(g, W, ids, excl, tmax), bp)
 
 
 def _culled_case(T, N, dev, seed=0):
@@ -96,7 +174,8 @@ def _culled_case(T, N, dev, seed=0):
 def test_k4_k5_match_plain_and_k1_k2(dev, T, N):
     """On the same schedule K4 / K5 equal their plain versions (same f32
     arithmetic, same visit order): ids, t / u / v to 1e-6, flags; and
-    culling changes no answer: K1 / K2 on the same rays agree."""
+    culling changes no answer: K1 / K2 with separately rounded dots (the
+    culled kernels' arithmetic) agree on the same rays."""
     accel, ro, rd, excl, tmax = _culled_case(T, N, dev, seed=T)
     c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl)
     args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
@@ -108,7 +187,7 @@ def test_k4_k5_match_plain_and_k1_k2(dev, T, N):
     for a, b in ((hk.t, hp.t), (hk.u, hp.u), (hk.v, hp.v)):
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
     g = ops_intersect.ray_features(ro, rd).contiguous()
-    h1 = intersect_cuda.nearest_hit(g, accel.W, accel.tri_ids, excl)
+    h1 = intersect_cuda.nearest_hit(g, accel.W, accel.tri_ids, excl, fma=False)
     assert (hk.tri_id[:N] == h1.tri_id).all()
     assert bool(h1.valid.any())
 
@@ -118,7 +197,7 @@ def test_k4_k5_match_plain_and_k1_k2(dev, T, N):
     bk = intersect_cuda.occluded_culled(*args)
     assert intersect_cuda.occluded_culled.launches == n5 + 1
     assert (bk == intersect_cuda.occluded_culled_plain(*args)).all()
-    b2 = intersect_cuda.occluded(g, accel.W, accel.tri_ids, excl, tmax)
+    b2 = intersect_cuda.occluded(g, accel.W, accel.tri_ids, excl, tmax, fma=False)
     assert (bk[:N] == b2).all() and bool(b2.any())
 
 

@@ -217,7 +217,7 @@ def test_chunked_cull_composition_matches(monkeypatch, scene, block, chunk):
     from monte_carlo_path_tracing_tpu_torch.render import camera as tcam
     from monte_carlo_path_tracing_tpu_torch.scene import load_scene
 
-    s = load_scene(os.path.join(SCENES, scene, f"{scene}.obj"))
+    s = load_scene(os.path.join(SCENES, scene, f"{scene}.obj"), device="cpu")
     cam = dataclasses.replace(s.camera, width=24, height=16)
     u, v, n, d = tcam.camera_basis(cam)
     ro, rd = primary_dirs(cam, u, v, n, d, tcam.pixel_len(cam, d), torch.arange(24 * 16))

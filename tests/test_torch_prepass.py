@@ -41,7 +41,7 @@ ESTIMATORS = [(e, s) for e in ("mis", "brdf", "split")
 def _pair(jax_scene, w, h):
     js = dataclasses.replace(jax_scene, camera=dataclasses.replace(
         jax_scene.camera, width=w, height=h))
-    return js, scene_from_arrays(scene_arrays(jax_scene), w, h)
+    return js, scene_from_arrays(scene_arrays(jax_scene), w, h, device="cpu")
 
 
 def _kw(w, h, **kw):

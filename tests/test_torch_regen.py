@@ -35,7 +35,7 @@ def _pair(jax_scene, wh):
     """The same scene for both packages (the JAX leaves handed across)."""
     js = dataclasses.replace(jax_scene, camera=dataclasses.replace(
         jax_scene.camera, width=wh, height=wh))
-    return js, scene_from_arrays(scene_arrays(jax_scene), wh, wh)
+    return js, scene_from_arrays(scene_arrays(jax_scene), wh, wh, device="cpu")
 
 
 def _compare(a, b):

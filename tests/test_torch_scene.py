@@ -54,7 +54,7 @@ def scene_arrays(scene) -> dict:
 def test_load_scene_arrays_equal(name):
     path = os.path.join(SCENES, name, "veach-mis.obj" if "veach" in name else f"{name}.obj")
     a = scene_arrays(jax_load_scene(path))
-    b = scene_arrays(load_scene(path))
+    b = scene_arrays(load_scene(path, device="cpu"))
     assert sorted(a) == sorted(b) == sorted(SCENE_ARRAYS)
     for k in a:
         assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape, k
@@ -64,7 +64,7 @@ def test_load_scene_arrays_equal(name):
 def test_scene_from_arrays_round_trip(veach_scene):
     cam = veach_scene.camera
     sc = scene_from_arrays(scene_arrays(veach_scene), cam.width, cam.height,
-                           cam.fov_bug_compat)
+                           cam.fov_bug_compat, device="cpu")
     assert sc.num_tris == veach_scene.num_tris and sc.num_lights == veach_scene.num_lights
     a, b = scene_arrays(veach_scene), scene_arrays(sc.to("cpu"))
     for k in SCENE_ARRAYS:
@@ -74,7 +74,28 @@ def test_scene_from_arrays_round_trip(veach_scene):
     for x, y in zip(veach_scene.light_verts(), sc.light_verts()):
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
     with pytest.raises(KeyError):
-        scene_from_arrays({"tri_v0": a["tri_v0"]}, 4, 4)
+        scene_from_arrays({"tri_v0": a["tri_v0"]}, 4, 4, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["load_scene", "scene_from_arrays"])
+def test_scene_entry_points_default_to_the_card(veach_scene, entry):
+    """device="cpu" gives CPU tensors; without device= the scene goes to the
+    card, and on a machine without one the call raises instead of quietly
+    building a CPU scene."""
+    path = os.path.join(SCENES, "veach-mis", "veach-mis.obj")
+    cam = veach_scene.camera
+    build = {
+        "load_scene": lambda **kw: load_scene(path, **kw),
+        "scene_from_arrays": lambda **kw: scene_from_arrays(
+            scene_arrays(veach_scene), cam.width, cam.height, **kw),
+    }[entry]
+    sc = build(device="cpu")
+    assert all(t.device.type == "cpu" for t in (sc.tri_v0, sc.materials.kd, sc.camera.eye))
+    if torch.cuda.is_available():
+        assert build().device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
 
 
 @pytest.mark.parametrize("compat", [False, True])
@@ -82,7 +103,7 @@ def test_camera_rays(cornell_scene, compat):
     """Camera frame and primary rays to f32 round-off (XLA may fuse
     multiply-adds that torch rounds separately)."""
     jc = dataclasses.replace(cornell_scene.camera, width=40, height=30, fov_bug_compat=compat)
-    sc = scene_from_arrays(scene_arrays(cornell_scene), 40, 30, compat)
+    sc = scene_from_arrays(scene_arrays(cornell_scene), 40, 30, compat, device="cpu")
     tc = sc.camera
     for x, y in zip(jcam.camera_basis(jc), tcam.camera_basis(tc)):
         np.testing.assert_allclose(np.asarray(x), y.numpy(), rtol=1e-6, atol=1e-6)
