@@ -1,4 +1,4 @@
-"""Count what the intersection kernels issue per (ray, triangle) pair.
+"""Count what the kernels issue per (ray, triangle) pair and per Arvo weight.
 
 Usage (on a machine with the CUDA toolkit; no GPU is needed):
 
@@ -20,6 +20,20 @@ The bound of ``chip_smoke.py`` counts about 90 f32 operations per pair
 over the 67 TFLOP/s peak, which counts a fused multiply-add as two: about
 45 issue slots of an SM's 128 lanes per pair. A pair loop that issues n
 instructions per pair can reach at most 45 / n of that bound.
+
+For K3 (``arvo_select_kernel``) it finds the weight loop, the innermost
+loop that holds one weight's three square roots (three ``MUFU.RSQ``) and
+its atan2f, and the cull loop, the innermost loop without ``MUFU`` that
+holds the cheap culls' four 3-term dots (12 multiplies a light). Spans
+skipped by a forward branch and holding a call (the slow paths of the
+square root and the division) are cold. It prints the instructions per
+weight evaluated on the rest and per light culled, each with the share of
+the bound that loop could reach at full issue: the bound counts 30
+operations per (point, light) for the culls and 60 more per pair that
+passes them (``chip_smoke.OPS``), so "at most 15 / n" for the cull loop
+and "at most 30 / n" for the weight loop. The kernel's own ceiling lies
+between them, weighted by the share of pairs that pass the culls, which
+``chip_smoke.py`` prints.
 """
 
 from __future__ import annotations
@@ -34,7 +48,7 @@ import subprocess
 from monte_carlo_path_tracing_tpu_torch.ops import _build
 
 KERNELS = ("nearest_kernel", "occluded_kernel", "nearest_culled_kernel",
-           "occluded_culled_kernel")
+           "occluded_culled_kernel", "arvo_select_kernel")
 INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
 TARGET = re.compile(r"0x([0-9a-f]+)")
 CLASSES = ("FFMA", "FMUL", "FADD", "FSETP", "LOP3", "LDS", "BRA", "PLOP3", "ISETP", "IADD3")
@@ -66,36 +80,73 @@ def functions(sass: str) -> dict[str, list[tuple[int, str, str, str]]]:
     return out
 
 
-def pair_loop(insns):
-    """(pairs per pass, instructions on the common path, whole loop body)."""
-    addr = [a for a, *_ in insns]
-    best = None
+def loops(insns):
+    """(first, last) indices of every loop: a backward branch and its
+    target."""
+    addr = {a: i for i, (a, *_) in enumerate(insns)}
+    out = []
     for i, (a, _, op, args) in enumerate(insns):
         t = TARGET.search(args)
-        if not op.startswith("BRA") or not t or int(t.group(1), 16) > a:
-            continue
-        lo = addr.index(int(t.group(1), 16)) if int(t.group(1), 16) in addr else None
-        if lo is None:
-            continue
-        body = insns[lo:i + 1]
-        muls = sum(op2.split(".")[0] in ("FFMA", "FMUL") for _, _, op2, _ in body)
-        if muls >= 40 and (best is None or len(body) < best[0]):
-            best = (len(body), muls, lo, i)
-    if best is None:
-        return 0, [], []
-    _, _, lo, hi = best
-    body = insns[lo:hi + 1]
-    cold = set()
+        if op.startswith("BRA") and t and int(t.group(1), 16) <= a and int(t.group(1), 16) in addr:
+            out.append((addr[int(t.group(1), 16)], i))
+    return out
+
+
+def count(body, ops) -> int:
+    return sum(op.split(".")[0] in ops for _, _, op, _ in body)
+
+
+def hot_path(body, cold_ops):
+    """The loop body without, for each instruction of ``cold_ops``, the
+    smallest span a forward branch skips that holds it."""
+    spans = []
     for j, (a, pred, op, args) in enumerate(body):
         t = TARGET.search(args)
-        if not (op.startswith("BRA") and pred and t and int(t.group(1), 16) > a):
-            continue
-        span = [k for k in range(j + 1, len(body)) if body[k][0] < int(t.group(1), 16)]
-        if any(body[k][2].split(".")[0] in COLD for k in span):
-            cold.update(span)
-    hot = [x for k, x in enumerate(body) if k not in cold]
-    hot_muls = sum(op.split(".")[0] in ("FFMA", "FMUL") for _, _, op, _ in hot)
-    return round(hot_muls / 40), hot, body
+        if op.startswith("BRA") and pred and t and int(t.group(1), 16) > a:
+            spans.append(range(j + 1, max([k + 1 for k in range(j + 1, len(body))
+                                           if body[k][0] < int(t.group(1), 16)], default=j + 1)))
+    cold = set()
+    for k, (_, _, op, _) in enumerate(body):
+        if op.split(".")[0] in cold_ops:
+            inside = [s for s in spans if k in s]
+            if inside:
+                cold.update(min(inside, key=len))
+    return [x for k, x in enumerate(body) if k not in cold]
+
+
+def pair_loop(insns):
+    """(pairs per pass, instructions on the common path, whole loop body)."""
+    found = [(hi - lo, lo, hi) for lo, hi in loops(insns)
+             if count(insns[lo:hi + 1], ("FFMA", "FMUL")) >= 40]
+    if not found:
+        return 0, [], []
+    _, lo, hi = min(found)
+    body = insns[lo:hi + 1]
+    hot = hot_path(body, COLD)
+    return round(count(hot, ("FFMA", "FMUL")) / 40), hot, body
+
+
+def innermost(spans):
+    return [(lo, hi) for lo, hi in spans
+            if not any((lo2, hi2) != (lo, hi) and lo <= lo2 and hi2 <= hi for lo2, hi2 in spans)]
+
+
+def arvo_loops(insns):
+    """K3: [(kind, units per pass, common path, whole body)] for the weight
+    loops (kind "weight") and the cull loops ("light")."""
+    out = []
+    rsq = [(lo, hi) for lo, hi in loops(insns)
+           if sum(op.startswith("MUFU.RSQ") for _, _, op, _ in insns[lo:hi + 1]) >= 3]
+    for lo, hi in innermost(rsq):
+        body = insns[lo:hi + 1]
+        n = sum(op.startswith("MUFU.RSQ") for _, _, op, _ in body) // 3
+        out.append(("weight", n, hot_path(body, ("CALL",)), body))
+    cull = [(lo, hi) for lo, hi in loops(insns)
+            if count(insns[lo:hi + 1], ("MUFU",)) == 0 and count(insns[lo:hi + 1], ("FMUL",)) >= 12]
+    for lo, hi in innermost(cull):
+        body = insns[lo:hi + 1]
+        out.append(("light", count(body, ("FMUL",)) // 12, body, body))
+    return out
 
 
 def main():
@@ -113,12 +164,24 @@ def main():
             continue
         found += 1
         inst = re.search(r"ILb(\d)E", name)
-        tag = f"{kernel}<fma={inst.group(1)}>" if inst else kernel
-        pairs, hot, body = pair_loop(insns)
+        param = "staged" if kernel == "arvo_select_kernel" else "fma"
+        tag = f"{kernel}<{param}={inst.group(1)}>" if inst else kernel
         if args.dump:
             os.makedirs(args.dump, exist_ok=True)
             with open(os.path.join(args.dump, re.sub(r"[^\w=,]", "_", tag) + ".sass"), "w") as f:
                 f.write("\n".join(f"/*{a:04x}*/ {p} {o}{r};" for a, p, o, r in insns) + "\n")
+        if kernel == "arvo_select_kernel":
+            found_loops = arvo_loops(insns)
+            for kind, n, hot, body in found_loops:
+                slots = {"weight": 30, "light": 15}[kind]    # chip_smoke.OPS / 2
+                limit = f"; at most {slots / (len(hot) / n):.3f} of the bound"
+                print(f"[sass] {tag}: {kind} loop at {body[0][0]:#06x}, {n} per pass; per {kind} "
+                      f"{len(hot) / n:.2f} instructions on the common path ({len(body) / n:.2f} "
+                      f"with the slow paths){limit}")
+            if not any(kind == "weight" for kind, *_ in found_loops):
+                print(f"[sass] {tag}: no weight loop found ({len(insns)} instructions)")
+            continue
+        pairs, hot, body = pair_loop(insns)
         if not pairs:
             print(f"[sass] {tag}: no pair loop found ({len(insns)} instructions)")
             continue
@@ -130,7 +193,7 @@ def main():
               ", ".join(f"{c} {v:.2f}" for c, v in counted.items() if v) +
               f", other {other:.2f}; at most {45 / (len(hot) / pairs):.3f} of the bound")
     if not found:
-        raise SystemExit("chip_sass: no intersection kernel in the library's SASS")
+        raise SystemExit("chip_sass: no kernel of the port in the library's SASS")
 
 
 if __name__ == "__main__":

@@ -20,7 +20,9 @@ exits non-zero without printing a result:
    batches one primary-prepass chunk hands them (the camera fan of rows
    480-511 of the 1024^2 camera, and its 8 rounds of depth-0 shadow rays),
    against their plain versions and against K1 / K2 on the same rays, with
-   median times and bounds; K5 also on that shadow batch with t_max moved
+   median times and bounds (K5: flags as counted fringes against both, the
+   separately rounded instance bit-equal to the plain version, and K2's
+   time on the same rays); K5 also on that shadow batch with t_max moved
    past each ray's first hit, so that its flags are a mix and some ray
    tiles are all blocked;
 5. end to end, uncached: the Veach MIS render at the bench's uncached
@@ -37,7 +39,7 @@ exits non-zero without printing a result:
 The last lines are a JSON object of per-kernel results (time, plain
 version's time, bound — the larger of the operations this run's inputs
 need over the f32 peak and the bytes moved over the memory rate — and
-share of the bound, launches on the cached render), the card's
+share of the bound, launches on the cached render; K5 also ``k2_ms``), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
@@ -102,11 +104,14 @@ OPS = {
     "pair": 90,
     # K2 / K5: the same and t' < tmax |det|.
     "anyhit_pair": 92,
-    # K3 per (point, light) weight: ~84 f32 operations; three square roots
-    # and atan2f counted as one operation each. The function needs one
-    # weight per pair; the weights K3's second pass recomputes up to the
-    # pick are its design's cost and are not counted.
-    "arvo": 88,
+    # K3 per (point, light): the culls, front and above (four 3-term dots
+    # 20, four subtractions and compares 8, two ORs). Every pair needs them.
+    "arvo_cull": 30,
+    # K3 per pair that passes the culls: its weight (four 3-term dots 20,
+    # ab / bc / ca 9, three clamped lengths 15, det and the denominator 9,
+    # sA and the weight 3, the validity tests 4; square roots and atan2f
+    # one operation each). A pair that fails has weight 0 and needs none.
+    "arvo_weight": 60,
 }
 #: f32 peak outside the tensor cores and memory rate of an H100 SXM at
 #: 700 W (NVIDIA data sheet).
@@ -250,6 +255,28 @@ def main_path_inputs(scene, accel, n: int):
     return ro, rd, excl, hit, si
 
 
+def arvo_seen_pairs(C, x1, nrm, eps: float = 1e-6) -> int:
+    """(point, light) pairs that pass K3's culls, front and above, in
+    plain torch on the constants ``C`` (csrc/arvo.cu ``sees``): the pairs
+    whose weight the function has to evaluate."""
+    def xdot(v, j):
+        return (v[:, 0:1] * C[None, :, j] + v[:, 1:2] * C[None, :, j + 1]
+                + v[:, 2:3] * C[None, :, j + 2])
+
+    nx = (nrm * x1).sum(dim=1, keepdim=True)
+    front = (xdot(x1, 12) - C[None, :, 21]) > eps
+    above = ((xdot(nrm, 0) - nx) > eps) | ((xdot(nrm, 3) - nx) > eps) | ((xdot(nrm, 6) - nx) > eps)
+    return int((front & above).sum())
+
+
+def arvo_inputs(si, n: int):
+    """K3's inputs at the shading points ``si`` of :func:`main_path_inputs`:
+    points, shading normals and one uniform each (seeded stream)."""
+    dev = si.p.device
+    u = rng.uniform(rng.fold_in(rng.base_key(2, device=dev), torch.arange(n, device=dev)), (n,))
+    return si.p.contiguous(), si.ns.contiguous(), u
+
+
 def _entry(name, source, replaces, err, ms, plain_ms, bound_ms, bound_by):
     return dict(name=name, route="cuda", source=f"monte_carlo_path_tracing_tpu_torch/csrc/{source}",
                 replaces=f"monte_carlo_path_tracing_tpu/ops/{replaces}", max_abs_err=err, ms=ms,
@@ -319,10 +346,12 @@ def _k3(C, x1, nrm, u, n):
     ms = time_ms(lambda: arvo_cuda.arvo_select(C, x1, nrm, u))
     pms = time_ms(lambda: arvo_cuda.arvo_select_plain(C, x1, nrm, u), reps=5)
     L = C.shape[0]
-    evals = n * L                                        # one weight per (point, light)
-    bms, by = bound(evals * OPS["arvo"], nbytes(C, x1, nrm, u) + n * 8)
-    log(f"[kernels] K3 at {n} points x {L} lights: {ms:.3f} ms, plain {pms:.3f} ms, {evals} "
-        f"weight evaluations, bound {bms:.3f} ms ({by}), share {bms / ms:.3f}")
+    seen = arvo_seen_pairs(C, x1, nrm)                   # weights the function needs
+    bms, by = bound(n * L * OPS["arvo_cull"] + seen * OPS["arvo_weight"],
+                    nbytes(C, x1, nrm, u) + n * 8)
+    log(f"[kernels] K3 at {n} points x {L} lights: {ms:.3f} ms, plain {pms:.3f} ms, {n * L} "
+        f"pairs culled, {seen} weights needed ({seen / (n * L):.4f} of pairs pass the culls), "
+        f"bound {bms:.4f} ms ({by}), share {bms / ms:.3f}")
     return _entry("K3 arvo_select", "arvo.cu", "arvo_pallas.py:111", err, ms, pms, bms, by)
 
 
@@ -369,9 +398,7 @@ def phase_kernels(scene):
         if n == N_CACHED:
             _tie_check(g[:n // 2].contiguous(), W, ids, excl[:n // 2].contiguous())
         # K3: Arvo light pick at the shading points where those rays landed.
-        x1, nrm = si.p.contiguous(), si.ns.contiguous()
-        u = rng.uniform(rng.fold_in(rng.base_key(2, device=dev), torch.arange(n, device=dev)),
-                        (n,))
+        x1, nrm, u = arvo_inputs(si, n)
         k3 = _k3(C, x1, nrm, u, n)
         # K2: NEE shadow rays from those points to Arvo-sampled light points.
         ls, _ = light_spherical.sample(
@@ -438,28 +465,33 @@ def _compare_hits(a, b):
 
 
 def _check_k5(accel, ro, rd, excl, scaled, tag):
-    """K5 against its plain version and against K2 on one shadow batch;
-    returns (flags differing from plain, blocked share, args of the call)."""
+    """K5 (fused dots) against its plain version and against K2 on one
+    shadow batch, as counted fringes; K5 with separately rounded dots bit
+    for bit the plain version. Returns (flags differing from plain, blocked
+    share, per-ray-tile flags, args and real rows of the call)."""
     W, ids = accel.real_rows()
     n = ro.shape[0]
     c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl, scaled)
     args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
-    bk = intersect_cuda.occluded_culled(*args)
-    bp = intersect_cuda.occluded_culled_plain(*args)
+    bk = intersect_cuda.occluded_culled(*args, rows=c.rows)
+    bs = intersect_cuda.occluded_culled(*args, rows=c.rows, fma=False)
+    bp = intersect_cuda.occluded_culled_plain(*args, rows=c.rows)
     b2 = intersect_cuda.occluded(ops_intersect.ray_features(ro, rd).contiguous(), W, ids,
                                  excl, scaled)
     torch.cuda.synchronize()
-    n_diff = int((bk != bp).sum())
+    n_diff, n_sep = int((bk != bp).sum()), int((bs != bp).sum())
     n_k2 = int((bk[:n] != b2).sum())
     tiles = torch.cat([b2, b2.new_zeros(c.g.shape[0] - n)]).view(c.order.shape[0], -1)
     share = float(b2.float().mean())
     log(f"[culled] K5 {tag}: {n} shadow rays, {share:.3f} blocked, "
         f"{int(tiles.all(dim=1).sum())} of {tiles.shape[0]} ray tiles all blocked; "
-        f"{float((c.te < 1.5e38).float().mean()):.3f} of tile pairs not culled; flags differ "
-        f"from plain on {n_diff} (bound 0.1%), from K2 on {n_k2} (bound 0.1%)")
+        f"{float((c.te < 1.5e38).float().mean()):.3f} of tile pairs not culled; {c.rows} real "
+        f"of {c.W.shape[0]} rows; flags differ from plain on {n_diff} (fused dots; bound 0.1%), "
+        f"from K2 on {n_k2} (bound 0.1%); separately rounded on {n_sep} (must be 0)")
     assert n_diff <= c.g.shape[0] // 1000, f"K5 disagrees with its plain version ({tag})"
     assert n_k2 <= n // 1000, f"K5 disagrees with K2 ({tag})"
-    return n_diff, share, tiles, args
+    assert n_sep == 0, f"K5 with separately rounded dots is not the plain version ({tag})"
+    return n_diff, share, tiles, args, c.rows
 
 
 def phase_culled(scene):
@@ -509,7 +541,7 @@ def phase_culled(scene):
     sexcl = sexcl.to(torch.int32).contiguous()
     scaled = (dist * (1.0 - ops_intersect.OCCLUSION_MARGIN)).to(torch.float32).contiguous()
     gs = ops_intersect.ray_features(sp, wl).contiguous()
-    d_main, _, _, args = _check_k5(accel, sp, wl, sexcl, scaled, "prepass batch")
+    d_main, _, _, args, rows = _check_k5(accel, sp, wl, sexcl, scaled, "prepass batch")
     n = sp.shape[0]
     t_hit = intersect_cuda.nearest_hit(gs, W, ids, sexcl)
     f = torch.as_tensor(np.random.default_rng(5).uniform(0.0, 2.0, n), dtype=torch.float32,
@@ -517,19 +549,22 @@ def phase_culled(scene):
     f = torch.where((torch.arange(n, device=sp.device) // intersect_cuda.RAY_TILE) % 2 == 0,
                     2.0, f)
     moved = torch.where(t_hit.valid, t_hit.t * f, scaled).contiguous()
-    d_moved, share, tiles, _ = _check_k5(accel, sp, wl, sexcl, moved, "t_max past the hit")
+    d_moved, share, tiles, _, _ = _check_k5(accel, sp, wl, sexcl, moved, "t_max past the hit")
     assert 0.05 <= share <= 0.95, f"moved-t_max batch blocked share {share:.3f}, want a mix"
     assert bool(tiles.all(dim=1).any()), "no ray tile all blocked: K5's exit never ran"
-    ms = time_ms(lambda: intersect_cuda.occluded_culled(*args))
-    pms = time_ms(lambda: intersect_cuda.occluded_culled_plain(*args), reps=5)
+    ms = time_ms(lambda: intersect_cuda.occluded_culled(*args, rows=rows))
+    sep_ms = time_ms(lambda: intersect_cuda.occluded_culled(*args, rows=rows, fma=False))
+    pms = time_ms(lambda: intersect_cuda.occluded_culled_plain(*args, rows=rows), reps=5)
     k2ms = time_ms(lambda: intersect_cuda.occluded(gs, W, ids, sexcl, scaled))
     pairs = anyhit_pairs(*args[:5], order=args[5], te=args[6])
     bms, by = bound(pairs * OPS["anyhit_pair"], nbytes(*args) + args[0].shape[0] * 4)
     log(f"[culled] K5 (prepass batch) {ms:.3f} ms, plain {pms:.3f} ms; K2 on the same rays "
         f"{k2ms:.3f} ms; {pairs} pairs needed ({pairs / (n * W.shape[0]):.3f} of all), bound "
-        f"{bms:.4f} ms ({by}), share {bms / ms:.3f}")
-    out.append(_entry("K5 occluded_culled", "intersect.cu", "intersect_pallas.py:229",
-                      float(d_main + d_moved > 0), ms, pms, bms, by))
+        f"{bms:.4f} ms ({by}), share {bms / ms:.3f}; separately rounded dots {sep_ms:.3f} ms")
+    e = _entry("K5 occluded_culled", "intersect.cu", "intersect_pallas.py:229",
+               float(d_main + d_moved > 0), ms, pms, bms, by)
+    e["k2_ms"] = k2ms
+    out.append(e)
     return out
 
 

@@ -76,6 +76,7 @@
 // the CUDA cores. No library kernels.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -144,27 +145,37 @@ constexpr int RB_STAGES = 2;                   // tiles in flight
 constexpr int RB_ROW_BYTES = 40 * 4;           // one triangle's W
 constexpr int RB_SMEM = RB_STAGES * RB_TILE * RB_ROW_BYTES;   // 40,960 bytes
 
-// Hopper's asynchronous copy and barrier instructions (PTX).
+// Hopper's asynchronous bulk copy and shared-memory barrier (PTX). A barrier
+// here counts one arrival per phase: the thread that issues the copy of a
+// phase arrives once, announcing the bytes it will bring; the phase
+// completes when that arrival and all those bytes are in.
 __device__ __forceinline__ uint32_t ptx_smem(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
+
 __device__ __forceinline__ void ptx_mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" :: "r"(ptx_smem(bar)) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
-// One copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
-// from global to shared memory that completes on `bar`; the calling
-// thread's arrival on `bar` announces the bytes first. The proxy fence
-// orders the CTA's earlier reads of dst before the copy overwrites it.
-__device__ __forceinline__ void ptx_bulk_copy(void* dst, const void* src, uint32_t bytes,
-                                              uint64_t* bar) {
+
+// The phase's one arrival, announcing `bytes` still to land (0: none). The
+// proxy fence orders the CTA's earlier reads of the shared memory the
+// copies will overwrite before the copies.
+__device__ __forceinline__ void ptx_mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
                :: "r"(ptx_smem(bar)), "r"(bytes) : "memory");
+}
+
+// One copy of `bytes` (a multiple of 16, both addresses 16-byte aligned)
+// from global to shared memory whose bytes count towards `bar`'s phase.
+__device__ __forceinline__ void ptx_bulk_load(void* dst, const void* src, uint32_t bytes,
+                                              uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       :: "r"(ptx_smem(dst)), "l"(src), "r"(bytes), "r"(ptx_smem(bar)) : "memory");
 }
+
 // Block until the phase of `bar` with this parity has completed.
 __device__ __forceinline__ void ptx_mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
@@ -175,22 +186,34 @@ __device__ __forceinline__ void ptx_mbar_wait(uint64_t* bar, uint32_t parity) {
         : "=r"(done) : "r"(ptx_smem(bar)), "r"(parity) : "memory");
 }
 
-// The staging ring: tile k of W goes into stage k % RB_STAGES by one bulk
-// copy that thread 0 issues; full[stage] completes when its bytes landed.
+// Where tile k of a walk comes from: rows(k) rows of W from row first(k).
+// K1 / K2 walk W in accel order, RB_TILE rows a tile.
+struct FlatFeed {
+  int T;
+  __device__ int first(int k) const { return k * RB_TILE; }
+  __device__ int rows(int k) const { return min(RB_TILE, T - k * RB_TILE); }
+};
+
+// The staging ring: tile k of a walk goes into stage k % RB_STAGES by one
+// bulk copy that thread 0 issues (an empty tile by a bare arrival);
+// full[stage] completes when its bytes landed.
+template <class Feed>
 struct Ring {
   const float* W;
   float4* tiles;                       // RB_STAGES x RB_TILE rows of W
   uint64_t* full;
-  int T, ntiles;
+  Feed feed;
+  int ntiles;
 
-  __device__ int rows(int k) const { return min(RB_TILE, T - k * RB_TILE); }
   __device__ float4* tile(int k) const { return tiles + (k % RB_STAGES) * (RB_TILE * 10); }
+  __device__ uint64_t* bar(int k) const { return &full[k % RB_STAGES]; }
   __device__ void issue(int k) const {
-    ptx_bulk_copy(tile(k), W + (size_t)k * RB_TILE * 40, rows(k) * RB_ROW_BYTES,
-                  &full[k % RB_STAGES]);
+    const uint32_t bytes = max(feed.rows(k), 0) * RB_ROW_BYTES;
+    ptx_mbar_arrive_tx(bar(k), bytes);
+    if (bytes) ptx_bulk_load(tile(k), W + (size_t)feed.first(k) * 40, bytes, bar(k));
   }
-  // Thread 0 sets up the barriers and fills the ring; every thread passes
-  // the CTA barrier after it.
+  // Thread 0 sets up the barriers and issues the walk's first tiles; every
+  // thread passes the CTA barrier after it.
   __device__ void start() const {
     if (threadIdx.x == 0) {
       for (int s = 0; s < RB_STAGES; ++s) ptx_mbar_init(&full[s]);
@@ -198,9 +221,7 @@ struct Ring {
     }
     __syncthreads();
   }
-  __device__ void wait(int k) const {
-    ptx_mbar_wait(&full[k % RB_STAGES], (k / RB_STAGES) & 1);
-  }
+  __device__ void wait(int k) const { ptx_mbar_wait(bar(k), (k / RB_STAGES) & 1); }
   // After every thread is done with tile k: refill its stage.
   __device__ void advance(int k) const {
     if (threadIdx.x == 0 && k + RB_STAGES < ntiles) issue(k + RB_STAGES);
@@ -257,16 +278,17 @@ __device__ __forceinline__ bool margin_ok(const float (&a)[4], float t_eps,
          (adet >= DET_EPS);
 }
 
-// Ray r of thread slot `slot` in this CTA.
-__device__ __forceinline__ int rb_ray(int slot, int r) {
-  return blockIdx.x * (RB_SLOTS * RB_R) + r * RB_SLOTS + slot;
+// Ray r of thread slot `slot` in block of rays `blk` (K1 / K2: the CTA).
+__device__ __forceinline__ int rb_ray(int slot, int r, int blk = blockIdx.x) {
+  return blk * (RB_SLOTS * RB_R) + r * RB_SLOTS + slot;
 }
 
 __device__ __forceinline__ void load_rays(const float* g, const int* excl, int N,
-                                          int slot, float (&gr)[RB_R][10], int (&ex)[RB_R]) {
+                                          int slot, float (&gr)[RB_R][10], int (&ex)[RB_R],
+                                          int blk = blockIdx.x) {
 #pragma unroll
   for (int r = 0; r < RB_R; ++r) {
-    const int ray = rb_ray(slot, r);
+    const int ray = rb_ray(slot, r, blk);
     const bool active = ray < N;
 #pragma unroll
     for (int k = 0; k < 10; ++k) gr[r][k] = active ? g[(size_t)ray * 10 + k] : 0.0f;
@@ -296,12 +318,12 @@ nearest_kernel(const float* __restrict__ g, const float* __restrict__ W,
     best_i[r] = -1;
   }
 
-  const Ring ring{W, rb_tiles, full, T, (T + RB_TILE - 1) / RB_TILE};
+  const Ring<FlatFeed> ring{W, rb_tiles, full, {T}, (T + RB_TILE - 1) / RB_TILE};
   ring.start();
   for (int k = 0; k < ring.ntiles; ++k) {
     ring.wait(k);
     const float4* tile = ring.tile(k);
-    const float4* end = tile + ring.rows(k) * 10;
+    const float4* end = tile + ring.feed.rows(k) * 10;
 #pragma unroll 2                     // two triangles a pass: loads overlap
     for (const float4* w = tile + lane * 10; w < end; w += RB_G * 10) {
       float acc[RB_R][4], tp[RB_R], adet[RB_R];
@@ -350,35 +372,21 @@ nearest_kernel(const float* __restrict__ g, const float* __restrict__ W,
   }
 }
 
-template <bool FMA>
-__global__ void __launch_bounds__(RB_THREADS)
-occluded_kernel(const float* __restrict__ g, const float* __restrict__ W,
-                const int* __restrict__ ids, const int* __restrict__ excl,
-                const float* __restrict__ tmax, int N, int T, float t_eps,
-                int* __restrict__ out) {
-  extern __shared__ float4 rb_tiles[];
-  __shared__ uint64_t full[RB_STAGES];
-  const int slot = threadIdx.x / RB_G;
+// The any-hit walk of K2 and K5 over the tiles of a started ring: ORs
+// (accepted, t' < tmax |det|, id not excluded) into `blocked` for this
+// thread's R rays; leaves once every ray of the CTA is blocked, after the
+// copies still in flight landed.
+template <bool FMA, class Feed>
+__device__ __forceinline__ void anyhit_walk(const Ring<Feed>& ring,
+                                           const float (&gr)[RB_R][10], const int (&ex)[RB_R],
+                                           const float (&tm)[RB_R], bool (&blocked)[RB_R],
+                                           const int* __restrict__ ids, float t_eps) {
   const int lane = threadIdx.x % RB_G;
   const unsigned group_mask = ((1u << RB_G) - 1u) << ((threadIdx.x % 32) & ~(RB_G - 1));
-  float gr[RB_R][10];
-  int ex[RB_R];
-  load_rays(g, excl, N, slot, gr, ex);
-  float tm[RB_R];
-  bool blocked[RB_R];                  // rays past N count as settled
-#pragma unroll
-  for (int r = 0; r < RB_R; ++r) {
-    const int ray = rb_ray(slot, r);
-    tm[r] = ray < N ? tmax[ray] : 0.0f;
-    blocked[r] = ray >= N;
-  }
-
-  const Ring ring{W, rb_tiles, full, T, (T + RB_TILE - 1) / RB_TILE};
-  ring.start();
   for (int k = 0; k < ring.ntiles; ++k) {
     ring.wait(k);
     const float4* tile = ring.tile(k);
-    const float4* end = tile + ring.rows(k) * 10;
+    const float4* end = tile + max(ring.feed.rows(k), 0) * 10;
     bool settled = true;
 #pragma unroll
     for (int r = 0; r < RB_R; ++r) settled = settled && blocked[r];
@@ -390,11 +398,12 @@ occluded_kernel(const float* __restrict__ g, const float* __restrict__ W,
 #pragma unroll
       for (int r = 0; r < RB_R; ++r) {
         float tp, adet;
-        hit[r] = margin_ok(acc[r], t_eps, tp, adet) & (tp < tm[r] * adet);
+        const bool ok = margin_ok(acc[r], t_eps, tp, adet);
+        hit[r] = ok & (tp < tm[r] * adet);
         any |= hit[r];
       }
       if (!any) continue;              // most pairs: one branch for R rays
-      const int id = __ldg(ids + k * RB_TILE + static_cast<int>(w - tile) / 10);
+      const int id = __ldg(ids + ring.feed.first(k) + static_cast<int>(w - tile) / 10);
       settled = true;
 #pragma unroll
       for (int r = 0; r < RB_R; ++r) {
@@ -412,11 +421,37 @@ occluded_kernel(const float* __restrict__ g, const float* __restrict__ W,
     // Every thread is done with tile k; leave once every ray is blocked.
     if (__syncthreads_and(settled)) {
       ring.drain(k);
-      break;
+      return;
     }
     ring.advance(k);
   }
-  if (lane != 0) return;
+}
+
+template <bool FMA>
+__global__ void __launch_bounds__(RB_THREADS)
+occluded_kernel(const float* __restrict__ g, const float* __restrict__ W,
+                const int* __restrict__ ids, const int* __restrict__ excl,
+                const float* __restrict__ tmax, int N, int T, float t_eps,
+                int* __restrict__ out) {
+  extern __shared__ float4 rb_tiles[];
+  __shared__ uint64_t full[RB_STAGES];
+  const int slot = threadIdx.x / RB_G;
+  float gr[RB_R][10];
+  int ex[RB_R];
+  load_rays(g, excl, N, slot, gr, ex);
+  float tm[RB_R];
+  bool blocked[RB_R];                  // rays past N count as settled
+#pragma unroll
+  for (int r = 0; r < RB_R; ++r) {
+    const int ray = rb_ray(slot, r);
+    tm[r] = ray < N ? tmax[ray] : 0.0f;
+    blocked[r] = ray >= N;
+  }
+
+  const Ring<FlatFeed> ring{W, rb_tiles, full, {T}, (T + RB_TILE - 1) / RB_TILE};
+  ring.start();
+  anyhit_walk<FMA>(ring, gr, ex, tm, blocked, ids, t_eps);
+  if (threadIdx.x % RB_G != 0) return;
 #pragma unroll
   for (int r = 0; r < RB_R; ++r) {
     const int ray = rb_ray(slot, r);
@@ -431,31 +466,64 @@ occluded_kernel(const float* __restrict__ g, const float* __restrict__ W,
 // the JAX package computes it in XLA): rays are cut into tiles of
 // CULL_RAYS rays; for ray tile r, order[r][k] is the k-th triangle tile to
 // visit and te[r][k] its conservative entry distance, ascending (tiles the ray tile
-// cannot touch have te = BIG_T). One CTA runs one ray tile, CULL_G threads
-// per ray taking interleaved triangles of each tile; each visited triangle
-// tile (tile <= TILE triangles, 40 floats + id each, ~41 KB) is staged through
-// shared memory by plain loads of all threads.
+// cannot touch have te = BIG_T).
 //
-// K4 visits tile k iff the largest best t of the CTA's rays is >= te[k];
-// te ascends and best t only falls, so the first tile that fails ends the
-// walk (exactly as the Pallas kernel's skipped tail). The best-t carry
-// starts at the ray's scene-exit cap, not at BIG_T, so rays that miss stop
-// forcing far tiles. Updates are strict '<' in visit order; the partial
-// results merge on (t, visit position, in-tile index), which reproduces the
-// schedule's tie rule: the first visited tile wins, then the lowest index.
-// K5 visits tile k iff te[k] < BIG_T / 2 and some ray of the CTA is not yet
-// blocked; an any-hit result does not depend on the order.
+// K4: one CTA runs one ray tile, CULL_G threads per ray taking interleaved
+// triangles of each tile; each visited triangle tile (tile <= TILE
+// triangles, 40 floats + id each, ~41 KB) is staged through shared memory
+// by plain loads of all threads. It visits tile k iff the largest best t
+// of the CTA's rays is >= te[k]; te ascends and best t only falls, so the
+// first tile that fails ends the walk (exactly as the Pallas kernel's
+// skipped tail). The best-t carry starts at the ray's scene-exit cap, not
+// at BIG_T, so rays that miss stop forcing far tiles. Updates are strict
+// '<' in visit order; the partial results merge on (t, visit position,
+// in-tile index), which reproduces the schedule's tie rule: the first
+// visited tile wins, then the lowest index. With few ray tiles (32k rays /
+// 512) only 64 of the 132 SMs get a CTA; 128-ray tiles made K4 + K5 of a
+// prepass chunk slower on an H100 in that design (PERF.md), so its ray
+// tile is JAX's 512.
 //
-// What bounds them: the same per-pair f32 issue rate as K1 / K2 on the
-// tiles visited; culling cuts the number of tiles. With few ray tiles
-// (32k rays / 512) only 64 of the 132 SMs get a CTA; 128-ray tiles made
-// K4 + K5 of a prepass chunk slower on an H100 (PERF.md), so the ray tile
-// is fixed at JAX's 512.
+// K5 visits every tile with te[k] < BIG_T / 2 (a prefix: te ascends) until
+// all its rays are blocked; an any-hit answer depends neither on the order
+// nor on which rays share a CTA. So K5 is K2's any-hit walk (register-
+// blocked rays, fused dots, one branch per R rays, bulk-copied tiles) on
+// the schedule: what bounds it is K2's per-pair issue rate on the pairs the
+// visited tiles hold. Design, against what held its first form (one ray per
+// thread, scalar shared loads, ~120 instructions a pair) at a quarter of
+// its bound:
+//   - K5_QUARTERS CTAs of 128 rays per ray tile, each walking that tile's
+//     schedule row for its own rays: a prepass shadow batch of 157,462
+//     rays gives 1,232 CTAs of 4 warps, not 308 of 32, so the last wave is
+//     not a third-full card; the all-blocked exit is per CTA;
+//   - schedule tile order[r][k] is `tile` (256) contiguous rows of W, fed
+//     to the two-stage ring as RB_TILE-row stages (128: the ring stays 40 KB
+//     and five CTAs fit an SM; one 256-row stage and a persistent grid were
+//     measured slower, PERF.md);
+//   - padding rows cost nothing: the Morton-ordered accel puts them last,
+//     so the caller passes the count of real rows and a stage copies and
+//     computes only rows below it (the 192 padding rows of Veach's last
+//     real tile were computed on every visit before); ids are read only on
+//     an accepted pair.
 
 constexpr int CULL_RAYS = 512;         // rays per tile (JAX RAY_TILE)
-constexpr int CULL_G = 2;              // threads per ray
+constexpr int CULL_G = 2;              // K4: threads per ray
 constexpr int CULL_BLOCK = CULL_RAYS * CULL_G;
 constexpr float SKIP_TE = 1.5e38f;     // te at or above: never visited
+
+constexpr int K5_QUARTERS = CULL_RAYS / (RB_SLOTS * RB_R);   // CTAs per ray tile
+
+// K5 walks schedule tile order[k / sub] as `sub` stages of RB_TILE rows,
+// the rows at or above `real` (padding) left out.
+struct ScheduleFeed {
+  const int* ord;
+  int tile, sub, real;
+  __device__ int first(int k) const {
+    return __ldg(ord + k / sub) * tile + (k % sub) * RB_TILE;
+  }
+  __device__ int rows(int k) const {
+    return min(min(RB_TILE, tile - (k % sub) * RB_TILE), real - first(k));
+  }
+};
 
 __device__ __forceinline__ void stage_n(float* sW, int* sId, const float* W,
                                         const int* ids, int base, int n) {
@@ -518,44 +586,43 @@ nearest_culled_kernel(const float* __restrict__ g, const float* __restrict__ W,
   recover(gr, W, ids, idx, ray, t_out, u_out, v_out, id_out);
 }
 
-__global__ void __launch_bounds__(CULL_BLOCK)
+// K5: CTA q takes block of rays q of ray tile q / K5_QUARTERS.
+template <bool FMA>
+__global__ void __launch_bounds__(RB_THREADS)
 occluded_culled_kernel(const float* __restrict__ g, const float* __restrict__ W,
                        const int* __restrict__ ids, const int* __restrict__ excl,
                        const float* __restrict__ tmax, const int* __restrict__ order,
-                       const float* __restrict__ te, int nb, int tile,
+                       const float* __restrict__ te, int nb, int tile, int real,
                        float t_eps, int* __restrict__ out) {
-  __shared__ float sW[TILE * 40];
-  __shared__ int sId[TILE];
-  const int ray = blockIdx.x * CULL_RAYS + threadIdx.x / CULL_G;
-  const int lane = threadIdx.x % CULL_G;
-  const int* ord = order + (size_t)blockIdx.x * nb;
-  const float* tev = te + (size_t)blockIdx.x * nb;
-  float gr[10];
-#pragma unroll
-  for (int k = 0; k < 10; ++k) gr[k] = g[ray * 10 + k];
-  const int ex = excl[ray];
-  const float tm = tmax[ray];
-  const unsigned group_mask = ((1u << CULL_G) - 1u) << ((threadIdx.x % 32) & ~(CULL_G - 1));
-
-  bool blocked = false;
-  for (int k = 0; k < nb; ++k) {
-    if (!(tev[k] < SKIP_TE)) break;    // te ascends: the rest are culled too
-    if (!__syncthreads_or(!blocked)) break;
-    stage_n(sW, sId, W, ids, ord[k] * tile, tile);
-    __syncthreads();
-    if (!blocked) {
-      for (int j = lane; j < tile; j += CULL_G) {
-        float tp, adet;
-        if (accept(gr, &sW[j * 40], sId[j], ex, t_eps, &tp, &adet) &&
-            tp < tm * adet) {
-          blocked = true;
-          break;
-        }
-      }
-    }
-    blocked = (__ballot_sync(0xffffffffu, blocked) & group_mask) != 0u;
+  extern __shared__ float4 rb_tiles[];
+  __shared__ uint64_t full[RB_STAGES];
+  const int q = blockIdx.x;
+  const int rt = q / K5_QUARTERS;
+  const int* ord = order + (size_t)rt * nb;
+  const float* tev = te + (size_t)rt * nb;
+  int nv = 0, hi = nb;                 // visited: the prefix with te < SKIP_TE
+  while (nv < hi) {
+    const int mid = (nv + hi) / 2;
+    if (__ldg(tev + mid) < SKIP_TE) nv = mid + 1; else hi = mid;
   }
-  if (lane == 0) out[ray] = blocked ? 1 : 0;
+  const int sub = (tile + RB_TILE - 1) / RB_TILE;
+  const Ring<ScheduleFeed> ring{W, rb_tiles, full, {ord, tile, sub, real}, nv * sub};
+  ring.start();
+  const int slot = threadIdx.x / RB_G;
+  float gr[RB_R][10];
+  int ex[RB_R];
+  load_rays(g, excl, INT_MAX, slot, gr, ex, q);
+  float tm[RB_R];
+  bool blocked[RB_R];
+#pragma unroll
+  for (int r = 0; r < RB_R; ++r) {
+    tm[r] = tmax[rb_ray(slot, r, q)];
+    blocked[r] = false;
+  }
+  anyhit_walk<FMA>(ring, gr, ex, tm, blocked, ids, t_eps);
+  if (threadIdx.x % RB_G != 0) return;
+#pragma unroll
+  for (int r = 0; r < RB_R; ++r) out[rb_ray(slot, r, q)] = blocked[r] ? 1 : 0;
 }
 
 inline bool culled_args_ok(int nrt, int nb, int tile) {
@@ -609,13 +676,18 @@ extern "C" int mcpt_nearest_culled(const float* g, const float* W, const int* id
   return (int)cudaGetLastError();
 }
 
+// real: rows of W below it are real triangles, the rest padding (never
+// accepted); fma as in mcpt_occluded. W must be 16-byte aligned.
 extern "C" int mcpt_occluded_culled(const float* g, const float* W, const int* ids,
                                     const int* excl, const float* tmax,
                                     const int* order, const float* te, int nrt,
-                                    int nb, int tile, float t_eps, int* blocked,
-                                    void* stream) {
-  if (!culled_args_ok(nrt, nb, tile)) return (int)cudaErrorInvalidValue;
-  occluded_culled_kernel<<<nrt, CULL_BLOCK, 0, (cudaStream_t)stream>>>(
-      g, W, ids, excl, tmax, order, te, nb, tile, t_eps, blocked);
+                                    int nb, int tile, int real, float t_eps, int* blocked,
+                                    int fma, void* stream) {
+  if (!culled_args_ok(nrt, nb, tile) || real < 0 || real > nb * tile ||
+      reinterpret_cast<uintptr_t>(W) % 16)
+    return (int)cudaErrorInvalidValue;
+  auto fn = fma ? occluded_culled_kernel<true> : occluded_culled_kernel<false>;
+  fn<<<nrt * K5_QUARTERS, RB_THREADS, RB_SMEM, (cudaStream_t)stream>>>(
+      g, W, ids, excl, tmax, order, te, nb, tile, real, t_eps, blocked);
   return (int)cudaGetLastError();
 }

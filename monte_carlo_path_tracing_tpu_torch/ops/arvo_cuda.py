@@ -8,6 +8,12 @@ triangle by its Van Oosterom-Strackee solid angle times radiance_sum
 given uniform. :func:`arvo_select` dispatches on device: CUDA tensors go to
 the kernel, CPU tensors to :func:`arvo_select_plain`
 (``prepare`` + the inverse-CDF pick of ``rng.pick_weighted``).
+
+The pick contract both hold: idx = count(cdf <= u * wsum), clamped to
+L - 1, so a point that sees no light (wsum 0) gets L - 1 and u = 0 the
+first light of nonzero weight. The kernel sums in another order (blocks
+of lights, csrc/arvo.cu), so wsum agrees to rounding and a pick may move
+by one index on the CDF-boundary fringe.
 """
 
 from __future__ import annotations
@@ -29,12 +35,18 @@ def pack_consts(scene) -> torch.Tensor:
     The same quantities as the Pallas kernel's (Wx, Wn, rowc, lsum), one
     row per light instead of lane-padded blocks."""
     pa, pb, pc = scene.light_verts()
-    nl = scene.geo_n[scene.light_tri_ids]
+    return pack_light_consts(pa, pb, pc, scene.geo_n[scene.light_tri_ids],
+                             radiance_sum(scene.light_emission()))
+
+
+def pack_light_consts(pa, pb, pc, nl, rad) -> torch.Tensor:
+    """The [L, 24] table of :func:`pack_consts` from light vertices pa, pb,
+    pc [L,3], geometric normals nl [L,3] and radiance sums rad [L]."""
     crs = vm.cross(pa, pb) + vm.cross(pb, pc) + vm.cross(pc, pa)
     cols = [
         vm.dot(pa, pb), vm.dot(pb, pc), vm.dot(pc, pa),
         vm.dot(pa, pa), vm.dot(pb, pb), vm.dot(pc, pc),
-        vm.dot(nl, pa), vm.det3(pa, pb, pc), radiance_sum(scene.light_emission()),
+        vm.dot(nl, pa), vm.det3(pa, pb, pc), rad,
     ]
     return torch.cat([pa, pb, pc, crs, nl, torch.stack(cols, dim=1)], dim=1).contiguous()
 
@@ -98,6 +110,8 @@ def arvo_select(C, x1, n, u):
             raise ValueError(f"arvo_select: {name} must be contiguous {shape}")
     if L == 0:
         raise ValueError("arvo_select: scene has no light triangles")
+    if C.data_ptr() % 16:                     # bulk copies / float4 loads of C
+        raise ValueError("arvo_select: C must be 16-byte aligned")
     lib = _build.load()
     idx = torch.empty(N, dtype=torch.int32, device=x1.device)
     wsum = torch.empty(N, dtype=torch.float32, device=x1.device)

@@ -126,6 +126,15 @@ def _chunks(accel: TriAccel):
     return [slice(c0, c0 + CULL_CHUNK_TRIS) for c0 in range(0, T, CULL_CHUNK_TRIS)]
 
 
+def _real_rows(accel: TriAccel, sl: slice, n: int) -> int:
+    """Real rows among the ``n`` rows of ``accel`` that ``sl`` selects: the
+    Morton-ordered accel holds its padding after the last real triangle,
+    so they are a prefix (all ``n`` for a hand-built accel)."""
+    if accel.num_tris is None:
+        return n
+    return max(0, min(n, accel.num_tris - sl.indices(accel.W.shape[0])[0]))
+
+
 class CulledCall(NamedTuple):
     """One culled kernel call's inputs, padded (JAX ``_call_nearest`` /
     ``_call_occluded`` with AABBs): rays to a multiple of the ray tile,
@@ -138,15 +147,18 @@ class CulledCall(NamedTuple):
     bound: torch.Tensor    # K4: scene-exit cap; K5: scaled t_max
     order: torch.Tensor    # [nrt, nb] visit order
     te: torch.Tensor       # [nrt, nb] entry distances, ascending
+    rows: int              # rows of W holding real triangles (the rest: padding)
 
 
 def culled_call(accel: TriAccel, sl: slice, ro, rd, excl, scaled_tmax=None,
                 t_eps: float = T_EPS):
     """The culled call over triangles ``sl`` of the accel: a nearest-hit
-    call (K4) when ``scaled_tmax`` is None, an any-hit call (K5) otherwise.
-    None when the triangles fit one tile: JAX then runs the all-pairs
-    kernel, there being nothing to cull."""
-    tile = intersect_cuda.cull_tile(accel.W[sl].shape[0])
+    call (K4) when ``scaled_tmax`` is None, an any-hit call (K5, which
+    skips the padding rows at and above ``rows``) otherwise. None when the
+    triangles fit one tile: JAX then runs the all-pairs kernel, there being
+    nothing to cull."""
+    n = accel.W[sl].shape[0]
+    tile = intersect_cuda.cull_tile(n)
     W, ids, lo, hi = intersect_cuda.pad_tris(
         accel.W[sl], accel.tri_ids[sl], accel.aabb_lo[sl], accel.aabb_hi[sl], tile)
     if W.shape[0] <= tile:
@@ -163,7 +175,7 @@ def culled_call(accel: TriAccel, sl: slice, ro, rd, excl, scaled_tmax=None,
         bound = t_cap.contiguous()
     order, te = intersect_cuda.cull_schedule(ro_p, rd_p, lo_t, hi_t, t_cap)
     return CulledCall(W=W, tri_ids=ids, g=g.contiguous(), excl=ex.contiguous(), bound=bound,
-                      order=order, te=te)
+                      order=order, te=te, rows=_real_rows(accel, sl, n))
 
 
 def intersect(
@@ -226,6 +238,6 @@ def occluded(
             b = intersect_cuda.occluded(g, accel.W[sl], accel.tri_ids[sl], excl, scaled, t_eps)
         else:
             b = intersect_cuda.occluded_culled(c.g, c.W, c.tri_ids, c.excl, c.bound, c.order,
-                                               c.te, t_eps)[:N]
+                                               c.te, t_eps, rows=c.rows)[:N]
         blocked = b if blocked is None else blocked | b
     return blocked

@@ -114,7 +114,8 @@ def _check_cuda(name, **tensors):
 
 
 def _check_aligned(name, W):
-    """K1 / K2 copy tiles of W with Hopper bulk copies: 16-byte aligned."""
+    """K1 / K2 / K5 copy tiles of W with Hopper bulk copies: 16-byte
+    aligned."""
     if W.data_ptr() % 16:
         raise ValueError(f"{name}: W must be 16-byte aligned")
 
@@ -313,20 +314,23 @@ def nearest_hit_culled_plain(g, W, tri_ids, excl, cap, order, te,
 
 
 def occluded_culled_plain(g, W, tri_ids, excl, tmax, order, te,
-                          t_eps: float = T_EPS) -> torch.Tensor:
+                          t_eps: float = T_EPS, *, rows: int) -> torch.Tensor:
     """Plain version of K5: each ray tile ORs (accepted and t' < tmax |det|)
     over the triangle tiles of ``order`` with te < BIG_T / 2, and stops
-    once every ray of the tile is blocked."""
-    gt, ex, Wt, idt, _, step = _culled_tiles(g, W, tri_ids, excl, order)
+    once every ray of the tile is blocked; triangles at or above ``rows``
+    (padding, never accepted) are left out."""
+    gt, ex, Wt, idt, tile, step = _culled_tiles(g, W, tri_ids, excl, order)
     tm = tmax.view(gt.shape[:2])
+    real = (torch.arange(W.shape[0], device=g.device) < rows).view(-1, tile)
     blocked = torch.zeros(gt.shape[:2], dtype=torch.bool, device=g.device)
     for k in range(order.shape[1]):
-        rows = torch.nonzero((te[:, k] < _SKIP_TE) & ~blocked.all(dim=1)).flatten()
-        if rows.numel() == 0:
+        live = torch.nonzero((te[:, k] < _SKIP_TE) & ~blocked.all(dim=1)).flatten()
+        if live.numel() == 0:
             break
-        for r in rows.split(step):
+        for r in live.split(step):
             b = order[r, k].long()
             ok, tp, adet = _accept(gt[r], Wt[b], idt[b], ex[r], t_eps)
+            ok &= real[b][:, None, :]
             blocked[r] |= (ok & (tp < tm[r][..., None] * adet)).any(dim=2)
     return blocked.view(-1)
 
@@ -372,21 +376,28 @@ def nearest_hit_culled(g, W, tri_ids, excl, cap, order, te, t_eps: float = T_EPS
     return Hit(t=t, tri_id=tid, u=u, v=v, valid=tid != NO_HIT)
 
 
-def occluded_culled(g, W, tri_ids, excl, tmax, order, te, t_eps: float = T_EPS) -> torch.Tensor:
+def occluded_culled(g, W, tri_ids, excl, tmax, order, te, t_eps: float = T_EPS, *,
+                    rows: int, fma: bool = True) -> torch.Tensor:
     """[N] bool: culled any hit below ``tmax`` (pre-scaled by the occlusion
-    margin) on the schedule (``order``, ``te``) of :func:`cull_schedule`.
-    CUDA tensors: K5; CPU tensors: the plain version."""
+    margin) on the schedule (``order``, ``te``) of :func:`cull_schedule`;
+    rows of ``W`` at or above ``rows`` are padding (``CulledCall.rows``).
+    CUDA tensors: K5 (``fma`` as in :func:`nearest_hit`); CPU tensors: the
+    plain version."""
     if not _route(g, "occluded_culled"):
-        return occluded_culled_plain(g, W, tri_ids, excl, tmax, order, te, t_eps)
+        return occluded_culled_plain(g, W, tri_ids, excl, tmax, order, te, t_eps, rows=rows)
     N, T = _check_cuda("occluded_culled", g=g, W=W, tri_ids=tri_ids, excl=excl,
                        tmax=tmax, order=order, te=te)
     nrt, nb, tile = _culled_shape("occluded_culled", N, T, order, te)
+    _check_aligned("occluded_culled", W)
+    real = int(rows)
+    if not 0 <= real <= T:
+        raise ValueError(f"occluded_culled: rows {real} outside [0, {T}]")
     lib = _build.load()
     out = torch.empty(N, dtype=torch.int32, device=g.device)
     err = lib.mcpt_occluded_culled(
         g.data_ptr(), W.data_ptr(), tri_ids.data_ptr(), excl.data_ptr(), tmax.data_ptr(),
-        order.data_ptr(), te.data_ptr(), nrt, nb, tile, float(t_eps), out.data_ptr(),
-        torch.cuda.current_stream(g.device).cuda_stream,
+        order.data_ptr(), te.data_ptr(), nrt, nb, tile, real, float(t_eps), out.data_ptr(),
+        int(fma), torch.cuda.current_stream(g.device).cuda_stream,
     )
     _build.check(err, "occluded_culled (K5)")
     occluded_culled.launches += 1

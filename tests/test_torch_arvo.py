@@ -103,3 +103,80 @@ def test_sample_and_pdf_of_tri(scenes):
     # a non-light (-1) has pdf 0
     assert (tls.pdf_of_tri(ts, torch.from_numpy(x1), torch.from_numpy(nrm),
                            torch.full((512,), -1, dtype=torch.int32), wt) == 0).all()
+
+
+def _dark(scene, x1, nrm):
+    """Points above every light vertex along an axis, normals along it: no
+    vertex is above any point's horizon, so every weight is 0."""
+    pa, pb, pc = scene.light_verts()
+    top = float(torch.cat([pa, pb, pc])[:, 1].max()) + 1.0
+    x1 = x1.copy()
+    x1[:, 1] = top + np.abs(x1[:, 1])
+    nrm = np.tile(np.array([0.0, 1.0, 0.0], np.float32), (x1.shape[0], 1))
+    return x1, nrm
+
+
+@pytest.fixture(scope="module")
+def cornell_pair(cornell_scene):
+    cam = cornell_scene.camera
+    return cornell_scene, scene_from_arrays(scene_arrays(cornell_scene), cam.width, cam.height,
+                                            device="cpu")
+
+
+@pytest.mark.parametrize("case", ["sees_no_light", "u_zero", "u_top", "cornell_fewer_lights"])
+def test_pick_contract_matches_pallas_interpret(scenes, cornell_pair, case):
+    """The pick contract K3 is held to: idx = count(cdf <= u * wsum),
+    clamped to L - 1 — a point that sees no light gets L - 1 and wsum 0,
+    u = 0 the first light of nonzero weight, u = 1 - 2**-24 the last one
+    or, where u * wsum rounds to the last cdf value or above, L - 1 (the
+    fringe by construction, so there picks are held to that rule, not to
+    each other); and a scene with fewer lights than K3's threads per point
+    (cornell: 2). The plain version matches the JAX kernel in interpret
+    mode on each, picks except the CDF-boundary fringe."""
+    js, ts = cornell_pair if case == "cornell_fewer_lights" else scenes
+    x1, nrm, u = _points(ts, 512)
+    if case == "sees_no_light":
+        x1, nrm = _dark(ts, x1, nrm)
+    elif case == "u_zero":
+        u = np.zeros_like(u)
+    elif case == "u_top":
+        u = np.full_like(u, 1.0 - 2.0 ** -24)
+    ij, wj = arvo_pallas.arvo_select(js, jnp.asarray(x1), jnp.asarray(nrm), jnp.asarray(u))
+    C = arvo_cuda.pack_consts(ts)
+    it, wt = arvo_cuda.arvo_select(C, *map(torch.from_numpy, (x1, nrm, u)))
+    L = C.shape[0]
+    assert it.dtype == torch.int32 and int(it.min()) >= 0 and int(it.max()) <= L - 1
+    n_diff = int((np.asarray(ij) != it.numpy()).sum())
+    assert case == "u_top" or n_diff <= 3, n_diff    # CDF-boundary fringe
+    np.testing.assert_allclose(np.asarray(wj), wt.numpy(), rtol=1e-3, atol=1e-6)
+    w, _ = arvo_cuda.prepare_from_consts(C, torch.from_numpy(x1), torch.from_numpy(nrm))
+    lit = w.sum(dim=1) > 0
+    if case == "sees_no_light":
+        assert not bool(lit.any()) and bool((it == L - 1).all()) and bool((wt == 0).all())
+        np.testing.assert_array_equal(np.asarray(ij), L - 1)
+    elif case == "u_zero":                           # the first nonzero weight
+        first = (w > 0).int().argmax(dim=1)
+        assert bool(lit.any()) and torch.equal(it[lit], first[lit].int())
+    elif case == "u_top":                            # the last nonzero weight, or L - 1
+        last = (L - 1 - (w > 0).flip(1).int().argmax(dim=1)).int()
+        assert bool(lit.any()) and bool(((it == last) | (it == L - 1))[lit].all())
+        # JAX's Kogge-Stone cdf is not monotone across zero weights, so it
+        # may also pick a zero-weight light after the last nonzero one.
+        pj = torch.from_numpy(np.array(ij))
+        assert bool((pj >= last)[lit].all())
+        print(f"u_top: JAX picks a zero-weight light after the last nonzero on "
+              f"{int(((pj != last) & (pj != L - 1))[lit].sum())} of {int(lit.sum())} points")
+    else:
+        assert L < 8 and bool(lit.any())
+
+
+def test_pack_light_consts_is_pack_consts(scenes):
+    """pack_consts is pack_light_consts on the scene's light triangles."""
+    from monte_carlo_path_tracing_tpu_torch.core.radiometry import radiance_sum
+
+    _, ts = scenes
+    pa, pb, pc = ts.light_verts()
+    C = arvo_cuda.pack_light_consts(pa, pb, pc, ts.geo_n[ts.light_tri_ids],
+                                    radiance_sum(ts.light_emission()))
+    assert C.shape == (ts.num_lights, arvo_cuda.N_CONSTS)
+    assert torch.equal(C, arvo_cuda.pack_consts(ts))

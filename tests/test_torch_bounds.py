@@ -101,3 +101,38 @@ def test_anyhit_pairs_k5_schedule_matches_brute_force(case):
     got = chip_smoke.anyhit_pairs(g, W, ids, excl, tmax, order=order, te=te)
     assert got == _brute(g, W, ids, excl, tmax, order, te)
     assert 0 < got < 24 * 40
+
+
+@pytest.mark.parametrize("case", ["mixed", "behind"])
+def test_arvo_seen_pairs_matches_brute_force(case):
+    """K3's bound counts a weight only for the (point, light) pairs that
+    pass its culls: ``chip_smoke.arvo_seen_pairs`` on the packed constants
+    equals the count made from the vertices pair by pair (front: the point
+    lies on the side the light's normal faces; above: some vertex lies above
+    the point's horizon), and every pair of nonzero weight is among them."""
+    from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda
+
+    g = np.random.default_rng(5)
+    n_pts, L = 40, 13
+    pa = g.uniform(-2, 2, (L, 3)) + [0.0, 3.0, 0.0]
+    pb, pc = pa + g.normal(size=(L, 3)) * 0.4, pa + g.normal(size=(L, 3)) * 0.4
+    nl = np.cross(pb - pa, pc - pa)
+    nl /= np.linalg.norm(nl, axis=-1, keepdims=True)
+    if case == "behind":                      # every light faces up, away from the points
+        nl = np.tile([0.0, 1.0, 0.0], (L, 1))
+    x = np.stack([g.uniform(-3, 3, n_pts), g.uniform(-1, 0, n_pts), g.uniform(-3, 3, n_pts)], -1)
+    nrm = g.normal(size=(n_pts, 3))
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32))  # noqa: E731
+    C = arvo_cuda.pack_light_consts(f(pa), f(pb), f(pc), f(nl), f(g.uniform(0.5, 5.0, L)))
+    want = 0
+    for i in range(n_pts):
+        for j in range(L):
+            front = np.dot(x[i] - pa[j], nl[j]) > 1e-6
+            above = any(np.dot(nrm[i], v[j] - x[i]) > 1e-6 for v in (pa, pb, pc))
+            want += bool(front and above)
+    got = chip_smoke.arvo_seen_pairs(C, f(x), f(nrm))
+    assert got == want
+    w, _ = arvo_cuda.prepare_from_consts(C, f(x), f(nrm))
+    assert int((w > 0).sum()) <= got
+    assert (got == 0) if case == "behind" else (0 < got < n_pts * L)

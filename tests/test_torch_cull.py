@@ -192,7 +192,8 @@ def test_culled_plain_matches_jax_kernels(monkeypatch, case):
     scaled = tmax * (1.0 - jops.OCCLUSION_MARGIN)
     blk_j, s = _jax_culled(monkeypatch, accel, ro, rd, excl, scaled)
     args = [_t(s[k]) for k in ("g", "W", "ids", "excl", "bound", "order", "te")]
-    np.testing.assert_array_equal(tic.occluded_culled_plain(*args)[:N].numpy(), blk_j)
+    np.testing.assert_array_equal(
+        tic.occluded_culled_plain(*args, rows=args[1].shape[0])[:N].numpy(), blk_j)
     assert 0 < blk_j.sum() < N
 
     pa = _port_accel(accel)
@@ -246,7 +247,8 @@ def test_culled_wrappers_take_plain_versions_on_cpu():
     assert (a.tri_id == b.tri_id).all() and torch.equal(a.t, b.t)
     c = tops.culled_call(pa, slice(None), _t(ro), _t(rd), _t(excl), _t(tmax))
     args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
-    assert torch.equal(tic.occluded_culled(*args), tic.occluded_culled_plain(*args))
+    assert torch.equal(tic.occluded_culled(*args, rows=c.rows),
+                       tic.occluded_culled_plain(*args, rows=c.rows))
     assert counts == (tic.nearest_hit_culled.launches, tic.occluded_culled.launches)
     assert tops.culled_call(pa, slice(0, 200), _t(ro), _t(rd), _t(excl)) is None
 
@@ -262,3 +264,41 @@ def test_culled_kernel_shapes_are_checked():
                     (2048, 3584, order[0])):
         with pytest.raises(ValueError):
             tic._culled_shape("k", N, T, o, te if o.shape == te.shape else o)
+
+
+@pytest.mark.parametrize("chunk", [None, 1024])
+def test_culled_call_real_rows(monkeypatch, chunk):
+    """culled_call hands K5 the count of real rows of its triangles: the
+    Morton-ordered accel keeps its padding last, so real rows are a prefix
+    (ids >= 0 below the count, padding ids -2 from it). Veach: 3,136 real
+    rows of 3,584 in one call, or 1,024 / 1,024 / 1,024 / 64 in chunks of
+    1,024. The plain K5 leaves the rows at and above the count out, which
+    changes no flag; the same rows cut below a blocker do."""
+    from monte_carlo_path_tracing_tpu_torch.scene import load_scene
+
+    s = load_scene(os.path.join(SCENES, "veach-mis", "veach-mis.obj"), device="cpu")
+    accel = tops.build_accel(s)
+    assert (accel.num_tris, accel.W.shape[0]) == (3136, 3584)
+    accel_j, ro, rd, excl, tmax = _fan(16)
+    ro, rd, excl = _t(ro), _t(rd), _t(excl)
+    tmax = _t(tmax) * (1.0 - tops.OCCLUSION_MARGIN)
+    if chunk:
+        monkeypatch.setattr(tops, "CULL_CHUNK_TRIS", chunk)
+    want = [1024, 1024, 1024, 64] if chunk else [3136]
+    got = []
+    for sl in tops._chunks(accel):
+        c = tops.culled_call(accel, sl, ro, rd, excl, tmax)
+        ids = c.tri_ids
+        assert bool((ids[:c.rows] >= 0).all()) and bool((ids[c.rows:] == -2).all())
+        args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+        full = tic.occluded_culled_plain(*args, rows=c.W.shape[0])
+        assert torch.equal(tic.occluded_culled_plain(*args, rows=c.rows), full)
+        assert torch.equal(tic.occluded_culled(*args, rows=c.rows, fma=False), full)
+        got.append(c.rows)
+        if bool(full.any()):                 # rows cut to none: nothing blocks
+            assert not bool(tic.occluded_culled_plain(*args, rows=0).any())
+    assert got == want
+    hand = tops.TriAccel(W=accel.W, tri_ids=accel.tri_ids, aabb_lo=accel.aabb_lo,
+                         aabb_hi=accel.aabb_hi)
+    assert tops.culled_call(hand, slice(None), ro, rd, excl, tmax).rows == 3584
+
