@@ -7,14 +7,15 @@ Usage (on a machine with the CUDA toolkit; no GPU is needed):
 Builds the port's kernel library (``ops/_build.py``), disassembles it with
 ``cuobjdump -sass`` and, for every instance of K1 (``nearest_kernel``), K2
 (``occluded_kernel``), K4 and K5 (``*_culled_kernel``), finds the pair loop:
-the innermost loop (backward branch) that holds at least one pair's 40
-multiplies. Spans of it skipped by a forward branch and holding a
-division, a call or a global load are the accept path, which few pairs
-take; the rest is the path every pair takes. The pairs one pass handles
-are that path's multiplies over 40 (four 10-term dots: 40 per pair, fused
-or not; the margin test adds one or two, which the rounding absorbs). Prints, per kernel
-instance, the instructions of that path per pair by class, and with
-``--dump`` writes each instance's SASS to ``DIR``.
+of the innermost loops (backward branches) that hold at least one pair's
+40 multiplies, the one whose common path holds the most (a remainder copy
+of the unrolled loop holds fewer). Spans of it skipped by a forward branch
+and holding a division, a call or a global load are the accept path,
+which few pairs take; the rest is the path every pair takes. The pairs one
+pass handles are that path's multiplies over 40 (four 10-term dots: 40 per
+pair, fused or not; the margin test adds one or two, which the rounding
+absorbs). Prints, per kernel instance, the instructions of that path per
+pair by class, and with ``--dump`` writes each instance's SASS to ``DIR``.
 
 The bound of ``chip_smoke.py`` counts about 90 f32 operations per pair
 over the 67 TFLOP/s peak, which counts a fused multiply-add as two: about
@@ -115,15 +116,17 @@ def hot_path(body, cold_ops):
 
 
 def pair_loop(insns):
-    """(pairs per pass, instructions on the common path, whole loop body)."""
-    found = [(hi - lo, lo, hi) for lo, hi in loops(insns)
-             if count(insns[lo:hi + 1], ("FFMA", "FMUL")) >= 40]
+    """(pairs per pass, instructions on the common path, whole loop body) of
+    the innermost loop with at least 40 multiplies whose common path holds
+    the most (the unrolled pair loop, not a remainder copy of it)."""
+    found = innermost([(lo, hi) for lo, hi in loops(insns)
+                       if count(insns[lo:hi + 1], ("FFMA", "FMUL")) >= 40])
     if not found:
         return 0, [], []
-    _, lo, hi = min(found)
-    body = insns[lo:hi + 1]
-    hot = hot_path(body, COLD)
-    return round(count(hot, ("FFMA", "FMUL")) / 40), hot, body
+    hots = [(count(hot, ("FFMA", "FMUL")), -(hi - lo), hot, insns[lo:hi + 1])
+            for lo, hi in found for hot in [hot_path(insns[lo:hi + 1], COLD)]]
+    muls, _, hot, body = max(hots, key=lambda h: h[:2])
+    return round(muls / 40), hot, body
 
 
 def innermost(spans):

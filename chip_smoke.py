@@ -20,9 +20,10 @@ exits non-zero without printing a result:
    batches one primary-prepass chunk hands them (the camera fan of rows
    480-511 of the 1024^2 camera, and its 8 rounds of depth-0 shadow rays),
    against their plain versions and against K1 / K2 on the same rays, with
-   median times and bounds (K5: flags as counted fringes against both, the
-   separately rounded instance bit-equal to the plain version, and K2's
-   time on the same rays); K5 also on that shadow batch with t_max moved
+   median times and bounds (K4: ids, K5: flags as counted fringes against
+   both, the separately rounded instances bit-equal to the plain versions
+   and timed, and K1's / K2's time on the same rays); K5 also on that
+   shadow batch with t_max moved
    past each ray's first hit, so that its flags are a mix and some ray
    tiles are all blocked;
 5. end to end, uncached: the Veach MIS render at the bench's uncached
@@ -39,7 +40,9 @@ exits non-zero without printing a result:
 The last lines are a JSON object of per-kernel results (time, plain
 version's time, bound — the larger of the operations this run's inputs
 need over the f32 peak and the bytes moved over the memory rate — and
-share of the bound, launches on the cached render; K5 also ``k2_ms``), the card's
+share of the bound, launches on the cached render; K4 also ``k1_ms`` and K5
+``k2_ms``, the all-pairs kernel on the same rays, and both ``sep_ms``, the
+separately rounded instance), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
@@ -119,6 +122,8 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 #: The prepass chunk whose batches the culled kernels are checked on:
 #: pixel rows [480, 512) of the 1024^2 camera (one 32,768-pixel chunk).
 FAN_ROW0, FAN_ROWS = 480, 32
+#: Rays a K4 CTA walks the schedule for (csrc/intersect.cu: RB_SLOTS x RB_R).
+K4_CTA_RAYS = 128
 
 
 def log(*a):
@@ -215,15 +220,18 @@ def anyhit_pairs(g, W, ids, excl, tmax, order=None, te=None,
     return int(need.sum())
 
 
-def nearest_culled_pairs(c, best_t, n: int) -> int:
+def nearest_culled_pairs(c, best_t, n: int, group: int = 1) -> int:
     """(ray, triangle) pairs a culled nearest-hit call (K4) needs: for each
     of its first ``n`` rays, the real triangles of the tiles whose te is at
     most the ray's final best t (``best_t``: its hit t, or the scene-exit
-    cap where it misses) — the tiles that could hold a nearer hit."""
+    cap where it misses) — the tiles that could hold a nearer hit. With
+    ``group`` > 1 each ray takes the largest final best t of its group of
+    consecutive rays: the pairs that groups walking whole tiles together
+    compute at least."""
     nrt, nb = c.order.shape
     rt, tile = c.g.shape[0] // nrt, c.W.shape[0] // nb
     real = (c.tri_ids >= 0).view(nb, tile).sum(dim=1)[c.order.long()]   # [nrt, nb]
-    bt = best_t.view(nrt, rt)
+    bt = best_t.view(-1, group).amax(dim=1, keepdim=True).expand(-1, group).reshape(nrt, rt)
     visit = c.te[:, None, :] <= bt[:, :, None]                          # [nrt, rt, nb]
     mine = (torch.arange(nrt * rt, device=bt.device) < n).view(nrt, rt, 1)
     return int((visit & mine).long().mul(real[:, None, :]).sum())
@@ -509,28 +517,39 @@ def phase_culled(scene):
     h1 = intersect_cuda.nearest_hit(g, W, ids, excl)
     c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl)
     args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
-    hk = intersect_cuda.nearest_hit_culled(*args)
-    hp = intersect_cuda.nearest_hit_culled_plain(*args)
+    hk = intersect_cuda.nearest_hit_culled(*args, rows=c.rows)
+    hs = intersect_cuda.nearest_hit_culled(*args, rows=c.rows, fma=False)
+    hp = intersect_cuda.nearest_hit_culled_plain(*args, rows=c.rows)
     torch.cuda.synchronize()
     n_diff, err = _compare_hits(hk, hp)
+    exact = all(torch.equal(a, b) for a, b in ((hs.tri_id, hp.tri_id), (hs.t, hp.t),
+                                                (hs.u, hp.u), (hs.v, hp.v)))
     hk = ops_intersect.Hit(*(x[:n] for x in (hk.t, hk.tri_id, hk.u, hk.v, hk.valid)))
     n_k1, err_k1 = _compare_hits(hk, h1)
     log(f"[culled] K4: {n} fan rays, {c.order.shape[0]} x {c.order.shape[1]} tiles, "
-        f"{float((c.te < 1.5e38).float().mean()):.3f} not culled; ids differ from plain on "
-        f"{n_diff} (bound 0.1%), max err {err:.3g}; from K1 on {n_k1} (bound 0.1%), "
-        f"max err {err_k1:.3g}")
+        f"{float((c.te < 1.5e38).float().mean()):.3f} not culled; {c.rows} real of "
+        f"{c.W.shape[0]} rows; ids differ from plain on {n_diff} (fused dots; bound 0.1%), "
+        f"max err {err:.3g}; from K1 on {n_k1} (bound 0.1%), max err {err_k1:.3g}; separately "
+        f"rounded: ids, t, u, v bit-equal to plain {exact}")
     assert n_diff <= c.g.shape[0] // 1000, "K4 disagrees with its plain version"
     assert n_k1 <= n // 1000, "K4 disagrees with K1"
-    ms = time_ms(lambda: intersect_cuda.nearest_hit_culled(*args))
-    pms = time_ms(lambda: intersect_cuda.nearest_hit_culled_plain(*args), reps=5)
+    assert exact, "K4 with separately rounded dots is not the plain version"
+    ms = time_ms(lambda: intersect_cuda.nearest_hit_culled(*args, rows=c.rows))
+    sep_ms = time_ms(lambda: intersect_cuda.nearest_hit_culled(*args, rows=c.rows, fma=False))
     k1ms = time_ms(lambda: intersect_cuda.nearest_hit(g, W, ids, excl))
-    pairs = nearest_culled_pairs(c, torch.where(hp.valid, hp.t, c.bound), n)
+    pms = time_ms(lambda: intersect_cuda.nearest_hit_culled_plain(*args, rows=c.rows), reps=5)
+    best_t = torch.where(hp.valid, hp.t, c.bound)
+    pairs = nearest_culled_pairs(c, best_t, n)
+    walked = nearest_culled_pairs(c, best_t, n, group=K4_CTA_RAYS)
     bms, by = bound(pairs * OPS["pair"], nbytes(*args) + c.g.shape[0] * 16)
-    log(f"[culled] K4 {ms:.3f} ms, plain {pms:.3f} ms; K1 on the same rays {k1ms:.3f} ms; "
-        f"{pairs} pairs needed ({pairs / (n * W.shape[0]):.3f} of all), bound {bms:.4f} ms "
-        f"({by}), share {bms / ms:.3f}")
-    out.append(_entry("K4 nearest_hit_culled", "intersect.cu", "intersect_pallas.py:175", err,
-                      ms, pms, bms, by))
+    log(f"[culled] K4 {ms:.3f} ms, separately rounded dots {sep_ms:.3f} ms; K1 on the same "
+        f"rays {k1ms:.3f} ms; plain {pms:.3f} ms; {pairs} pairs needed "
+        f"({pairs / (n * W.shape[0]):.3f} of all), at least {walked} computed by "
+        f"{K4_CTA_RAYS}-ray CTAs; bound {bms:.4f} ms ({by}), share {bms / ms:.3f}")
+    e = _entry("K4 nearest_hit_culled", "intersect.cu", "intersect_pallas.py:175", err, ms, pms,
+               bms, by)
+    e.update(k1_ms=k1ms, sep_ms=sep_ms)
+    out.append(e)
 
     # K5 on the chunk's depth-0 shadow batch, as the prepass hands it over.
     # No ray of it is blocked (Veach's lights see the plates unobstructed),
@@ -563,7 +582,7 @@ def phase_culled(scene):
         f"{bms:.4f} ms ({by}), share {bms / ms:.3f}; separately rounded dots {sep_ms:.3f} ms")
     e = _entry("K5 occluded_culled", "intersect.cu", "intersect_pallas.py:229",
                float(d_main + d_moved > 0), ms, pms, bms, by)
-    e["k2_ms"] = k2ms
+    e.update(k2_ms=k2ms, sep_ms=sep_ms)
     out.append(e)
     return out
 

@@ -81,7 +81,7 @@
 
 namespace {
 
-constexpr int TILE = 256;              // triangles per staged tile (K4 / K5)
+constexpr int TILE = 256;              // largest schedule tile (K4 / K5)
 constexpr float BIG_T = 3.0e38f;
 constexpr float DET_EPS = 1e-9f;
 
@@ -90,25 +90,6 @@ __device__ __forceinline__ float dot10(const float* g, const float* w, int c) {
 #pragma unroll
   for (int k = 1; k < 10; ++k) acc = acc + g[k] * w[k * 4 + c];
   return acc;
-}
-
-// Sign-corrected (tp, adet) and the accept decision of one pair.
-__device__ __forceinline__ bool accept(const float* g, const float* w, int id,
-                                       int excl, float t_eps, float* tp_out,
-                                       float* adet_out) {
-  const float det = dot10(g, w, 0);
-  const float un = dot10(g, w, 1);
-  const float vn = dot10(g, w, 2);
-  const float tn = dot10(g, w, 3);
-  const float s = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
-  const float adet = det * s;
-  const float up = un * s;
-  const float vp = vn * s;
-  const float tp = tn * s;
-  *tp_out = tp;
-  *adet_out = adet;
-  return up >= 0.0f && vp >= 0.0f && adet - (up + vp) >= 0.0f &&
-         tp - t_eps * adet >= 0.0f && adet - DET_EPS >= 0.0f && id != excl;
 }
 
 // Winner recovery of ray `ray` (triangle idx, or -1 for a miss): the same
@@ -263,10 +244,12 @@ __device__ __forceinline__ void dots(const float (&g)[RB_R][10], const float4* w
   }
 }
 
-// accept() without the id test, on the dots (det, u', v', t') of one pair:
-// the sign fix flips sign bits (det != 0 wherever it matters) and each
-// "a - b >= 0" is "a >= b", both exact in IEEE f32, so the decision, tp and
-// adet equal accept()'s bit for bit on the same dots.
+// The accept test without the id test, on the dots (det, u', v', t') of
+// one pair: the plain version's sign fix (multiply by sign(det)) and its
+// margins "a - b >= 0". Here the sign fix flips sign bits (det != 0
+// wherever it matters) and each margin is "a >= b", both exact in IEEE
+// f32, so the decision, tp and adet equal the plain version's bit for bit
+// on the same dots.
 __device__ __forceinline__ bool margin_ok(const float (&a)[4], float t_eps,
                                           float& tp, float& adet) {
   const uint32_t sb = __float_as_uint(a[0]) & 0x80000000u;
@@ -296,6 +279,59 @@ __device__ __forceinline__ void load_rays(const float* g, const int* excl, int N
   }
 }
 
+// The nearest-hit walk of K1 and K4 over one staged tile (rows [tile, end)
+// of W): this thread takes rows lane, lane + RB_G, ... and keeps, for each
+// of its R rays, the least t with strict '<' and its key, key0 + row; the
+// tile's ids (`ids`, row 0 first) are read only on an accepted pair. Keys
+// rise along a walk, so equal t keep the lowest key.
+template <bool FMA>
+__device__ __forceinline__ void nearest_tile(const float4* tile, const float4* end,
+                                             const float (&gr)[RB_R][10], const int (&ex)[RB_R],
+                                             const int* __restrict__ ids, int key0, float t_eps,
+                                             float (&best_t)[RB_R], int (&best_k)[RB_R]) {
+  const int lane = threadIdx.x % RB_G;
+#pragma unroll 2                     // two triangles a pass: loads overlap
+  for (const float4* w = tile + lane * 10; w < end; w += RB_G * 10) {
+    float acc[RB_R][4], tp[RB_R], adet[RB_R];
+    bool ok[RB_R], any = false;
+    dots<FMA>(gr, w, acc);
+#pragma unroll
+    for (int r = 0; r < RB_R; ++r) {
+      ok[r] = margin_ok(acc[r], t_eps, tp[r], adet[r]);
+      any |= ok[r];
+    }
+    if (!any) continue;                // most pairs: one branch for R rays
+    const int row = static_cast<int>(w - tile) / 10;
+    const int id = __ldg(ids + row);
+#pragma unroll
+    for (int r = 0; r < RB_R; ++r) {
+      if (!ok[r]) continue;
+      const float t = tp[r] / adet[r];
+      if (t < best_t[r] && id != ex[r]) {
+        best_t[r] = t;
+        best_k[r] = key0 + row;
+      }
+    }
+  }
+}
+
+// Merge the RB_G partial results of each ray: min t, ties to the lowest
+// key, which is the sequential strict-'<' walk's answer.
+__device__ __forceinline__ void merge_lanes(float (&best_t)[RB_R], int (&best_k)[RB_R]) {
+#pragma unroll
+  for (int r = 0; r < RB_R; ++r) {
+#pragma unroll
+    for (int off = 1; off < RB_G; off <<= 1) {
+      const float ot = __shfl_xor_sync(0xffffffffu, best_t[r], off);
+      const int ov = __shfl_xor_sync(0xffffffffu, best_k[r], off);
+      if (ot < best_t[r] || (ot == best_t[r] && ov < best_k[r])) {
+        best_t[r] = ot;
+        best_k[r] = ov;
+      }
+    }
+  }
+}
+
 template <bool FMA>
 __global__ void __launch_bounds__(RB_THREADS)
 nearest_kernel(const float* __restrict__ g, const float* __restrict__ W,
@@ -306,12 +342,11 @@ nearest_kernel(const float* __restrict__ g, const float* __restrict__ W,
   extern __shared__ float4 rb_tiles[];
   __shared__ uint64_t full[RB_STAGES];
   const int slot = threadIdx.x / RB_G;
-  const int lane = threadIdx.x % RB_G;
   float gr[RB_R][10];
   int ex[RB_R];
   load_rays(g, excl, N, slot, gr, ex);
   float best_t[RB_R];
-  int best_i[RB_R];
+  int best_i[RB_R];                    // key: the index in accel order
 #pragma unroll
   for (int r = 0; r < RB_R; ++r) {
     best_t[r] = BIG_T;
@@ -323,48 +358,14 @@ nearest_kernel(const float* __restrict__ g, const float* __restrict__ W,
   for (int k = 0; k < ring.ntiles; ++k) {
     ring.wait(k);
     const float4* tile = ring.tile(k);
-    const float4* end = tile + ring.feed.rows(k) * 10;
-#pragma unroll 2                     // two triangles a pass: loads overlap
-    for (const float4* w = tile + lane * 10; w < end; w += RB_G * 10) {
-      float acc[RB_R][4], tp[RB_R], adet[RB_R];
-      bool ok[RB_R], any = false;
-      dots<FMA>(gr, w, acc);
-#pragma unroll
-      for (int r = 0; r < RB_R; ++r) {
-        ok[r] = margin_ok(acc[r], t_eps, tp[r], adet[r]);
-        any |= ok[r];
-      }
-      if (!any) continue;              // most pairs: one branch for R rays
-      const int idx = k * RB_TILE + static_cast<int>(w - tile) / 10;
-      const int id = __ldg(ids + idx);
-#pragma unroll
-      for (int r = 0; r < RB_R; ++r) {
-        if (!ok[r]) continue;
-        const float t = tp[r] / adet[r];
-        if (t < best_t[r] && id != ex[r]) {
-          best_t[r] = t;
-          best_i[r] = idx;
-        }
-      }
-    }
+    const int first = ring.feed.first(k);
+    nearest_tile<FMA>(tile, tile + ring.feed.rows(k) * 10, gr, ex, ids + first, first, t_eps,
+                      best_t, best_i);
     __syncthreads();                   // every thread is done with tile k
     ring.advance(k);
   }
-  // Merge the RB_G partial results of each ray: min t, ties to the lowest
-  // index.
-#pragma unroll
-  for (int r = 0; r < RB_R; ++r) {
-#pragma unroll
-    for (int off = 1; off < RB_G; off <<= 1) {
-      const float ot = __shfl_xor_sync(0xffffffffu, best_t[r], off);
-      const int oi = __shfl_xor_sync(0xffffffffu, best_i[r], off);
-      if (ot < best_t[r] || (ot == best_t[r] && oi < best_i[r])) {
-        best_t[r] = ot;
-        best_i[r] = oi;
-      }
-    }
-  }
-  if (lane != 0) return;
+  merge_lanes(best_t, best_i);
+  if (threadIdx.x % RB_G != 0) return;
 #pragma unroll
   for (int r = 0; r < RB_R; ++r) {
     const int ray = rb_ray(slot, r);
@@ -465,55 +466,54 @@ occluded_kernel(const float* __restrict__ g, const float* __restrict__ W,
 // The schedule comes from ops/intersect_cuda.cull_schedule (plain torch, as
 // the JAX package computes it in XLA): rays are cut into tiles of
 // CULL_RAYS rays; for ray tile r, order[r][k] is the k-th triangle tile to
-// visit and te[r][k] its conservative entry distance, ascending (tiles the ray tile
-// cannot touch have te = BIG_T).
+// visit and te[r][k] its conservative entry distance, ascending (tiles the
+// ray tile cannot touch have te = BIG_T). Schedule tile order[r][k] is
+// `tile` (256) contiguous rows of W, fed to the two-stage ring as `sub`
+// stages of RB_TILE rows (128: the ring stays 40 KB and five CTAs fit an
+// SM).
 //
-// K4: one CTA runs one ray tile, CULL_G threads per ray taking interleaved
-// triangles of each tile; each visited triangle tile (tile <= TILE
-// triangles, 40 floats + id each, ~41 KB) is staged through shared memory
-// by plain loads of all threads. It visits tile k iff the largest best t
-// of the CTA's rays is >= te[k]; te ascends and best t only falls, so the
-// first tile that fails ends the walk (exactly as the Pallas kernel's
-// skipped tail). The best-t carry starts at the ray's scene-exit cap, not
-// at BIG_T, so rays that miss stop forcing far tiles. Updates are strict
-// '<' in visit order; the partial results merge on (t, visit position,
-// in-tile index), which reproduces the schedule's tie rule: the first
-// visited tile wins, then the lowest index. With few ray tiles (32k rays /
-// 512) only 64 of the 132 SMs get a CTA; 128-ray tiles made K4 + K5 of a
-// prepass chunk slower on an H100 in that design (PERF.md), so its ray
-// tile is JAX's 512.
+// Both are the all-pairs kernels' walks on that schedule (register-blocked
+// rays, fused dots, one branch per R rays, bulk-copied tiles), so what
+// bounds them is K1's / K2's per-pair issue rate on the pairs the visited
+// tiles hold. Design:
+//   - CULL_CTAS CTAs of 128 rays (RB_SLOTS blocks of RB_R rays) per ray
+//     tile, each walking that tile's schedule row for its own rays: a
+//     prepass camera fan of 32,768 rays gives 256 CTAs and a shadow batch
+//     of 157,462 rays 1,232, where one CTA per ray tile would give 64 and
+//     308 for 132 SMs;
+//   - padding rows cost nothing: the Morton-ordered accel puts them last
+//     (192 in Veach's last real tile), so the caller passes the count of
+//     real rows and a stage copies and computes only rows below it; ids
+//     are read only on an accepted pair.
+//
+// K4 visits schedule tile k iff the largest best t among the CTA's rays
+// (a ray's best t: the min over its RB_G threads) is >= te[k]; te ascends
+// and best t only falls, so the first tile that fails ends the walk, as
+// the Pallas kernel's skipped tail. Breaking per CTA is exact: te of the
+// ray tile bounds every hit of any subset of its rays from below. The test
+// falls at schedule-tile boundaries, one __syncthreads_or per tile, which
+// also ends every thread's use of the stage before; a walk that ends
+// waits for the copies still in flight. The best-t carry starts at the
+// ray's scene-exit cap, not at BIG_T, so rays that miss stop forcing far
+// tiles. Updates are strict '<' in visit order on the key visit position
+// x tile + in-tile index, and the threads' results merge on (t, key), so
+// the first visited tile wins a tie, then the lowest index in it (JAX's
+// b * tile + lane with strict '<' across tiles; K1's lowest accel index
+// would be the wrong rule here). The winner's key maps back through order
+// to its row of W for recovery.
 //
 // K5 visits every tile with te[k] < BIG_T / 2 (a prefix: te ascends) until
 // all its rays are blocked; an any-hit answer depends neither on the order
-// nor on which rays share a CTA. So K5 is K2's any-hit walk (register-
-// blocked rays, fused dots, one branch per R rays, bulk-copied tiles) on
-// the schedule: what bounds it is K2's per-pair issue rate on the pairs the
-// visited tiles hold. Design, against what held its first form (one ray per
-// thread, scalar shared loads, ~120 instructions a pair) at a quarter of
-// its bound:
-//   - K5_QUARTERS CTAs of 128 rays per ray tile, each walking that tile's
-//     schedule row for its own rays: a prepass shadow batch of 157,462
-//     rays gives 1,232 CTAs of 4 warps, not 308 of 32, so the last wave is
-//     not a third-full card; the all-blocked exit is per CTA;
-//   - schedule tile order[r][k] is `tile` (256) contiguous rows of W, fed
-//     to the two-stage ring as RB_TILE-row stages (128: the ring stays 40 KB
-//     and five CTAs fit an SM; one 256-row stage and a persistent grid were
-//     measured slower, PERF.md);
-//   - padding rows cost nothing: the Morton-ordered accel puts them last,
-//     so the caller passes the count of real rows and a stage copies and
-//     computes only rows below it (the 192 padding rows of Veach's last
-//     real tile were computed on every visit before); ids are read only on
-//     an accepted pair.
+// nor on which rays share a CTA, and each CTA takes the all-blocked exit on
+// its own.
 
 constexpr int CULL_RAYS = 512;         // rays per tile (JAX RAY_TILE)
-constexpr int CULL_G = 2;              // K4: threads per ray
-constexpr int CULL_BLOCK = CULL_RAYS * CULL_G;
 constexpr float SKIP_TE = 1.5e38f;     // te at or above: never visited
 
-constexpr int K5_QUARTERS = CULL_RAYS / (RB_SLOTS * RB_R);   // CTAs per ray tile
+constexpr int CULL_CTAS = CULL_RAYS / (RB_SLOTS * RB_R);   // CTAs per ray tile
 
-// K5 walks schedule tile order[k / sub] as `sub` stages of RB_TILE rows,
-// the rows at or above `real` (padding) left out.
+// Schedule tile order[k / sub] as `sub` stages of RB_TILE rows, the rows at
+// or above `real` (padding) left out.
 struct ScheduleFeed {
   const int* ord;
   int tile, sub, real;
@@ -525,68 +525,81 @@ struct ScheduleFeed {
   }
 };
 
-__device__ __forceinline__ void stage_n(float* sW, int* sId, const float* W,
-                                        const int* ids, int base, int n) {
-  for (int i = threadIdx.x; i < n * 40; i += CULL_BLOCK) sW[i] = W[base * 40 + i];
-  for (int i = threadIdx.x; i < n; i += CULL_BLOCK) sId[i] = ids[base + i];
+// K4's visit test, by every thread of the CTA (also a CTA barrier): does
+// some ray's best t reach `te`?
+__device__ __forceinline__ bool cta_reaches(const float (&best_t)[RB_R], float te) {
+  bool reach = false;
+#pragma unroll
+  for (int r = 0; r < RB_R; ++r) {
+    float t = best_t[r];
+#pragma unroll
+    for (int off = 1; off < RB_G; off <<= 1) t = fminf(t, __shfl_xor_sync(0xffffffffu, t, off));
+    reach |= t >= te;
+  }
+  return __syncthreads_or(reach) != 0;
 }
 
-__global__ void __launch_bounds__(CULL_BLOCK)
+// K4: CTA q takes block of rays q of ray tile q / CULL_CTAS.
+template <bool FMA>
+__global__ void __launch_bounds__(RB_THREADS)
 nearest_culled_kernel(const float* __restrict__ g, const float* __restrict__ W,
                       const int* __restrict__ ids, const int* __restrict__ excl,
                       const float* __restrict__ cap, const int* __restrict__ order,
-                      const float* __restrict__ te, int nb, int tile,
+                      const float* __restrict__ te, int nb, int tile, int real,
                       float t_eps, float* __restrict__ t_out,
                       float* __restrict__ u_out, float* __restrict__ v_out,
                       int* __restrict__ id_out) {
-  __shared__ float sW[TILE * 40];
-  __shared__ int sId[TILE];
-  const int ray = blockIdx.x * CULL_RAYS + threadIdx.x / CULL_G;
-  const int lane = threadIdx.x % CULL_G;
-  const int* ord = order + (size_t)blockIdx.x * nb;
-  const float* tev = te + (size_t)blockIdx.x * nb;
-  float gr[10];
+  extern __shared__ float4 rb_tiles[];
+  __shared__ uint64_t full[RB_STAGES];
+  const int q = blockIdx.x;
+  const int* ord = order + (size_t)(q / CULL_CTAS) * nb;
+  const float* tev = te + (size_t)(q / CULL_CTAS) * nb;
+  const int slot = threadIdx.x / RB_G;
+  float gr[RB_R][10];
+  int ex[RB_R];
+  load_rays(g, excl, INT_MAX, slot, gr, ex, q);
+  float best_t[RB_R];
+  int best_k[RB_R];                    // key: visit position * tile + in-tile index
 #pragma unroll
-  for (int k = 0; k < 10; ++k) gr[k] = g[ray * 10 + k];
-  const int ex = excl[ray];
+  for (int r = 0; r < RB_R; ++r) {
+    best_t[r] = cap[rb_ray(slot, r, q)];
+    best_k[r] = -1;
+  }
 
-  float best_t = cap[ray];
-  int best_pos = -1;                   // visit position * tile + in-tile index
-  for (int k = 0; k < nb; ++k) {
-    float ray_t = best_t;              // this ray's best over its threads
-#pragma unroll
-    for (int off = 1; off < CULL_G; off <<= 1)
-      ray_t = fminf(ray_t, __shfl_xor_sync(0xffffffffu, ray_t, off));
-    // Barrier too: the previous tile is consumed before it is overwritten.
-    if (!__syncthreads_or(ray_t >= tev[k])) break;
-    stage_n(sW, sId, W, ids, ord[k] * tile, tile);
-    __syncthreads();
-    for (int j = lane; j < tile; j += CULL_G) {
-      float tp, adet;
-      if (accept(gr, &sW[j * 40], sId[j], ex, t_eps, &tp, &adet)) {
-        const float t = tp / adet;
-        if (t < best_t) {
-          best_t = t;
-          best_pos = k * tile + j;
+  const int sub = (tile + RB_TILE - 1) / RB_TILE;
+  const Ring<ScheduleFeed> ring{W, rb_tiles, full, {ord, tile, sub, real}, nb * sub};
+  if (cta_reaches(best_t, __ldg(tev))) {   // else the CTA visits no tile
+    ring.start();
+    for (int k = 0; k < ring.ntiles; ++k) {
+      if (k > 0 && k % sub == 0) {     // first stage of schedule tile k / sub
+        if (!cta_reaches(best_t, __ldg(tev + k / sub))) {
+          ring.drain(k - 1);
+          break;
         }
+        ring.advance(k - 1);
+      }
+      ring.wait(k);
+      const float4* stage = ring.tile(k);
+      const int first = ring.feed.first(k);
+      nearest_tile<FMA>(stage, stage + max(ring.feed.rows(k), 0) * 10, gr, ex, ids + first,
+                        (k / sub) * tile + (k % sub) * RB_TILE, t_eps, best_t, best_k);
+      if ((k + 1) % sub) {             // a stage inside the tile: refill it now
+        __syncthreads();
+        ring.advance(k);
       }
     }
   }
+  merge_lanes(best_t, best_k);
+  if (threadIdx.x % RB_G != 0) return;
 #pragma unroll
-  for (int off = 1; off < CULL_G; off <<= 1) {
-    const float ot = __shfl_xor_sync(0xffffffffu, best_t, off);
-    const int op = __shfl_xor_sync(0xffffffffu, best_pos, off);
-    if (ot < best_t || (ot == best_t && op < best_pos)) {
-      best_t = ot;
-      best_pos = op;
-    }
+  for (int r = 0; r < RB_R; ++r) {
+    const int key = best_k[r];
+    const int idx = key < 0 ? -1 : __ldg(ord + key / tile) * tile + key % tile;
+    recover(gr[r], W, ids, idx, rb_ray(slot, r, q), t_out, u_out, v_out, id_out);
   }
-  if (lane != 0) return;
-  const int idx = best_pos < 0 ? -1 : ord[best_pos / tile] * tile + best_pos % tile;
-  recover(gr, W, ids, idx, ray, t_out, u_out, v_out, id_out);
 }
 
-// K5: CTA q takes block of rays q of ray tile q / K5_QUARTERS.
+// K5: CTA q takes block of rays q of ray tile q / CULL_CTAS.
 template <bool FMA>
 __global__ void __launch_bounds__(RB_THREADS)
 occluded_culled_kernel(const float* __restrict__ g, const float* __restrict__ W,
@@ -597,7 +610,7 @@ occluded_culled_kernel(const float* __restrict__ g, const float* __restrict__ W,
   extern __shared__ float4 rb_tiles[];
   __shared__ uint64_t full[RB_STAGES];
   const int q = blockIdx.x;
-  const int rt = q / K5_QUARTERS;
+  const int rt = q / CULL_CTAS;
   const int* ord = order + (size_t)rt * nb;
   const float* tev = te + (size_t)rt * nb;
   int nv = 0, hi = nb;                 // visited: the prefix with te < SKIP_TE
@@ -625,8 +638,9 @@ occluded_culled_kernel(const float* __restrict__ g, const float* __restrict__ W,
   for (int r = 0; r < RB_R; ++r) out[rb_ray(slot, r, q)] = blocked[r] ? 1 : 0;
 }
 
-inline bool culled_args_ok(int nrt, int nb, int tile) {
-  return nrt > 0 && nb > 0 && tile > 0 && tile <= TILE;
+inline bool culled_args_ok(int nrt, int nb, int tile, int real, const float* W) {
+  return nrt > 0 && nb > 0 && tile > 0 && tile <= TILE && real >= 0 && real <= nb * tile &&
+         reinterpret_cast<uintptr_t>(W) % 16 == 0;
 }
 
 // CTAs for N rays, or 0 when the call is not valid (W must be 16-byte
@@ -665,29 +679,29 @@ extern "C" int mcpt_occluded(const float* g, const float* W, const int* ids,
   return (int)cudaGetLastError();
 }
 
+// real: rows of W below it are real triangles, the rest padding (never
+// accepted); fma as in mcpt_nearest. W must be 16-byte aligned.
 extern "C" int mcpt_nearest_culled(const float* g, const float* W, const int* ids,
                                    const int* excl, const float* cap,
                                    const int* order, const float* te, int nrt,
-                                   int nb, int tile, float t_eps, float* t, float* u,
-                                   float* v, int* tri_id, void* stream) {
-  if (!culled_args_ok(nrt, nb, tile)) return (int)cudaErrorInvalidValue;
-  nearest_culled_kernel<<<nrt, CULL_BLOCK, 0, (cudaStream_t)stream>>>(
-      g, W, ids, excl, cap, order, te, nb, tile, t_eps, t, u, v, tri_id);
+                                   int nb, int tile, int real, float t_eps, float* t,
+                                   float* u, float* v, int* tri_id, int fma, void* stream) {
+  if (!culled_args_ok(nrt, nb, tile, real, W)) return (int)cudaErrorInvalidValue;
+  auto fn = fma ? nearest_culled_kernel<true> : nearest_culled_kernel<false>;
+  fn<<<nrt * CULL_CTAS, RB_THREADS, RB_SMEM, (cudaStream_t)stream>>>(
+      g, W, ids, excl, cap, order, te, nb, tile, real, t_eps, t, u, v, tri_id);
   return (int)cudaGetLastError();
 }
 
-// real: rows of W below it are real triangles, the rest padding (never
-// accepted); fma as in mcpt_occluded. W must be 16-byte aligned.
+// real, fma and W as in mcpt_nearest_culled.
 extern "C" int mcpt_occluded_culled(const float* g, const float* W, const int* ids,
                                     const int* excl, const float* tmax,
                                     const int* order, const float* te, int nrt,
                                     int nb, int tile, int real, float t_eps, int* blocked,
                                     int fma, void* stream) {
-  if (!culled_args_ok(nrt, nb, tile) || real < 0 || real > nb * tile ||
-      reinterpret_cast<uintptr_t>(W) % 16)
-    return (int)cudaErrorInvalidValue;
+  if (!culled_args_ok(nrt, nb, tile, real, W)) return (int)cudaErrorInvalidValue;
   auto fn = fma ? occluded_culled_kernel<true> : occluded_culled_kernel<false>;
-  fn<<<nrt * K5_QUARTERS, RB_THREADS, RB_SMEM, (cudaStream_t)stream>>>(
+  fn<<<nrt * CULL_CTAS, RB_THREADS, RB_SMEM, (cudaStream_t)stream>>>(
       g, W, ids, excl, tmax, order, te, nb, tile, real, t_eps, blocked);
   return (int)cudaGetLastError();
 }

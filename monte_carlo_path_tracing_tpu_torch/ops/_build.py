@@ -39,9 +39,9 @@ SIGNATURES = {
     "mcpt_nearest": (_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _P),
     "mcpt_occluded": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P),
     "mcpt_arvo_select": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
-    "mcpt_nearest_culled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                            _P, _P, _P, _P, _P),
-    # K5: ..., nrt, nb, tile, real rows, t_eps, out, fma, stream
+    # K4 / K5: ..., nrt, nb, tile, real rows, t_eps, outputs, fma, stream
+    "mcpt_nearest_culled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                            _P, _P, _P, _P, _I, _P),
     "mcpt_occluded_culled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _P),
 }
 

@@ -153,8 +153,8 @@ class CulledCall(NamedTuple):
 def culled_call(accel: TriAccel, sl: slice, ro, rd, excl, scaled_tmax=None,
                 t_eps: float = T_EPS):
     """The culled call over triangles ``sl`` of the accel: a nearest-hit
-    call (K4) when ``scaled_tmax`` is None, an any-hit call (K5, which
-    skips the padding rows at and above ``rows``) otherwise. None when the
+    call (K4) when ``scaled_tmax`` is None, an any-hit call (K5) otherwise;
+    both skip the padding rows at and above ``rows``. None when the
     triangles fit one tile: JAX then runs the all-pairs kernel, there being
     nothing to cull."""
     n = accel.W[sl].shape[0]
@@ -204,7 +204,7 @@ def intersect(
             h = intersect_cuda.nearest_hit(g, accel.W[sl], accel.tri_ids[sl], excl, t_eps)
         else:
             h = intersect_cuda.nearest_hit_culled(c.g, c.W, c.tri_ids, c.excl, c.bound,
-                                                  c.order, c.te, t_eps)
+                                                  c.order, c.te, t_eps, rows=c.rows)
             h = Hit(t=h.t[:N], tri_id=h.tri_id[:N], u=h.u[:N], v=h.v[:N], valid=h.valid[:N])
         best = h if best is None else _compose_nearest(best, h)
     return best

@@ -114,7 +114,7 @@ def _check_cuda(name, **tensors):
 
 
 def _check_aligned(name, W):
-    """K1 / K2 / K5 copy tiles of W with Hopper bulk copies: 16-byte
+    """K1, K2, K4 and K5 copy tiles of W with Hopper bulk copies: 16-byte
     aligned."""
     if W.data_ptr() % 16:
         raise ValueError(f"{name}: W must be 16-byte aligned")
@@ -277,24 +277,27 @@ def scene_exit_cap(ro, rd, lo_t, hi_t, t_eps: float = T_EPS) -> torch.Tensor:
     return torch.where(hit_box, cap, 0.0).to(torch.float32).contiguous()
 
 
-def _culled_tiles(g, W, tri_ids, excl, order):
+def _culled_tiles(g, W, tri_ids, excl, order, rows: int):
     """Tile views of a culled call: (g [nrt,rt,10], excl [nrt,rt],
-    W [nb,tile,10,4], ids [nb,tile], tile, rows per plain-version step)."""
+    W [nb,tile,10,4], ids [nb,tile], real [nb,tile] (the rows below
+    ``rows``), tile, rows per plain-version step)."""
     nrt, nb = order.shape
     rt, tile = g.shape[0] // nrt, W.shape[0] // nb
+    real = (torch.arange(W.shape[0], device=g.device) < rows).view(nb, tile)
     return (g.view(nrt, rt, 10), excl.view(nrt, rt), W.view(nb, tile, 10, 4),
-            tri_ids.view(nb, tile), tile, max(1, _PLAIN_FIELD // (rt * tile)))
+            tri_ids.view(nb, tile), real, tile, max(1, _PLAIN_FIELD // (rt * tile)))
 
 
 def nearest_hit_culled_plain(g, W, tri_ids, excl, cap, order, te,
-                             t_eps: float = T_EPS) -> Hit:
+                             t_eps: float = T_EPS, *, rows: int) -> Hit:
     """Plain version of K4, replaying its schedule: each ray tile visits
     triangle tiles in ``order`` while the largest best t of its rays is >=
     the tile's te (te ascends, so the first miss ends the tile); the best-t
     carry starts at the scene-exit ``cap``, updates with strict '<' (the
     first visited tile, then the lowest index within it, wins a tie); then
-    winner recovery."""
-    gt, ex, Wt, idt, tile, step = _culled_tiles(g, W, tri_ids, excl, order)
+    winner recovery. Triangles at or above ``rows`` (padding, never
+    accepted) are left out."""
+    gt, ex, Wt, idt, real, tile, step = _culled_tiles(g, W, tri_ids, excl, order, rows)
     best_t = cap.view(gt.shape[:2]).clone()
     best_i = torch.full(gt.shape[:2], -1, dtype=torch.int64, device=g.device)
     for k in range(order.shape[1]):
@@ -304,6 +307,7 @@ def nearest_hit_culled_plain(g, W, tri_ids, excl, cap, order, te,
         for r in rows.split(step):
             b = order[r, k].long()
             ok, tp, adet = _accept(gt[r], Wt[b], idt[b], ex[r], t_eps)
+            ok &= real[b][:, None, :]
             t = torch.where(ok, tp / torch.where(adet > 0, adet, torch.ones_like(adet)),
                             torch.full_like(tp, BIG_T))
             tb, lane = torch.min(t, dim=2)          # first minimal index
@@ -319,9 +323,8 @@ def occluded_culled_plain(g, W, tri_ids, excl, tmax, order, te,
     over the triangle tiles of ``order`` with te < BIG_T / 2, and stops
     once every ray of the tile is blocked; triangles at or above ``rows``
     (padding, never accepted) are left out."""
-    gt, ex, Wt, idt, tile, step = _culled_tiles(g, W, tri_ids, excl, order)
+    gt, ex, Wt, idt, real, tile, step = _culled_tiles(g, W, tri_ids, excl, order, rows)
     tm = tmax.view(gt.shape[:2])
-    real = (torch.arange(W.shape[0], device=g.device) < rows).view(-1, tile)
     blocked = torch.zeros(gt.shape[:2], dtype=torch.bool, device=g.device)
     for k in range(order.shape[1]):
         live = torch.nonzero((te[:, k] < _SKIP_TE) & ~blocked.all(dim=1)).flatten()
@@ -350,25 +353,38 @@ def _culled_shape(name, N, T, order, te):
     return nrt, nb, tile
 
 
-def nearest_hit_culled(g, W, tri_ids, excl, cap, order, te, t_eps: float = T_EPS) -> Hit:
+def _culled_rows(name, W, rows) -> int:
+    """The real-row count of a culled kernel call, checked against W (and
+    W's alignment)."""
+    _check_aligned(name, W)
+    real = int(rows)
+    if not 0 <= real <= W.shape[0]:
+        raise ValueError(f"{name}: rows {real} outside [0, {W.shape[0]}]")
+    return real
+
+
+def nearest_hit_culled(g, W, tri_ids, excl, cap, order, te, t_eps: float = T_EPS, *,
+                       rows: int, fma: bool = True) -> Hit:
     """Culled nearest hit of rays ``g`` [N,10] (N a multiple of the ray
     tile) against ``W`` [T,10,4] (T a multiple of the triangle tile) on the
     schedule (``order``, ``te``) of :func:`cull_schedule`, best-t carry
-    starting at ``cap`` (:func:`scene_exit_cap`). CUDA tensors: K4; CPU
-    tensors: the plain version."""
+    starting at ``cap`` (:func:`scene_exit_cap`); rows of ``W`` at or above
+    ``rows`` are padding (``CulledCall.rows``). CUDA tensors: K4 (``fma`` as
+    in :func:`nearest_hit`); CPU tensors: the plain version."""
     if not _route(g, "nearest_hit_culled"):
-        return nearest_hit_culled_plain(g, W, tri_ids, excl, cap, order, te, t_eps)
+        return nearest_hit_culled_plain(g, W, tri_ids, excl, cap, order, te, t_eps, rows=rows)
     N, T = _check_cuda("nearest_hit_culled", g=g, W=W, tri_ids=tri_ids, excl=excl,
                        cap=cap, order=order, te=te)
     nrt, nb, tile = _culled_shape("nearest_hit_culled", N, T, order, te)
+    real = _culled_rows("nearest_hit_culled", W, rows)
     lib = _build.load()
     t = torch.empty(N, dtype=torch.float32, device=g.device)
     u, v = torch.empty_like(t), torch.empty_like(t)
     tid = torch.empty(N, dtype=torch.int32, device=g.device)
     err = lib.mcpt_nearest_culled(
         g.data_ptr(), W.data_ptr(), tri_ids.data_ptr(), excl.data_ptr(), cap.data_ptr(),
-        order.data_ptr(), te.data_ptr(), nrt, nb, tile, float(t_eps),
-        t.data_ptr(), u.data_ptr(), v.data_ptr(), tid.data_ptr(),
+        order.data_ptr(), te.data_ptr(), nrt, nb, tile, real, float(t_eps),
+        t.data_ptr(), u.data_ptr(), v.data_ptr(), tid.data_ptr(), int(fma),
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     _build.check(err, "nearest_hit_culled (K4)")
@@ -388,10 +404,7 @@ def occluded_culled(g, W, tri_ids, excl, tmax, order, te, t_eps: float = T_EPS, 
     N, T = _check_cuda("occluded_culled", g=g, W=W, tri_ids=tri_ids, excl=excl,
                        tmax=tmax, order=order, te=te)
     nrt, nb, tile = _culled_shape("occluded_culled", N, T, order, te)
-    _check_aligned("occluded_culled", W)
-    real = int(rows)
-    if not 0 <= real <= T:
-        raise ValueError(f"occluded_culled: rows {real} outside [0, {T}]")
+    real = _culled_rows("occluded_culled", W, rows)
     lib = _build.load()
     out = torch.empty(N, dtype=torch.int32, device=g.device)
     err = lib.mcpt_occluded_culled(

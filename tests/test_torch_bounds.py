@@ -1,4 +1,4 @@
-"""The pair count behind K2's and K5's bounds in ``chip_smoke.py``.
+"""The pair counts behind K2's, K4's and K5's bounds in ``chip_smoke.py``.
 
 ``chip_smoke.anyhit_pairs`` counts the (ray, triangle) pairs an any-hit
 call needs on its inputs: each ray's real triangles in visit order, up to
@@ -6,7 +6,11 @@ and including its first blocker. It is held here against a count made
 pair by pair with the plain K2 on one triangle at a time, on small scenes
 whose rays are blocked at the first triangle, at the last, never, or as a
 random soup gives it; in accel order (K2) and on a culling schedule (K5).
+``chip_smoke.nearest_culled_pairs`` (K4) is held against a count made pair
+by pair from the schedule.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -136,3 +140,28 @@ def test_arvo_seen_pairs_matches_brute_force(case):
     w, _ = arvo_cuda.prepare_from_consts(C, f(x), f(nrm))
     assert int((w > 0).sum()) <= got
     assert (got == 0) if case == "behind" else (0 < got < n_pts * L)
+
+
+@pytest.mark.parametrize("group,n", [(1, 24), (1, 21), (4, 24), (4, 21)])
+def test_nearest_culled_pairs_matches_brute_force(group, n):
+    """K4's count: for each of the first ``n`` rays, the real triangles of
+    the tiles of its ray tile's schedule whose te is at most its final best
+    t, or, with ``group``, the largest final best t of its group of
+    consecutive rays. Two ray tiles of 12, three triangle tiles of 16 (the
+    last padded), one culled tile (te = BIG_T) in each schedule."""
+    g = np.random.default_rng(group + n)
+    ids = torch.cat([torch.arange(40, dtype=torch.int32), torch.full((8,), -2, dtype=torch.int32)])
+    c = SimpleNamespace(order=torch.tensor([[2, 0, 1], [1, 2, 0]], dtype=torch.int32),
+                        te=torch.tensor([[0.1, 0.3, BIG_T], [0.2, 0.4, BIG_T]]),
+                        g=torch.zeros((24, 10)), W=torch.zeros((48, 10, 4)), tri_ids=ids)
+    best_t = torch.as_tensor(g.choice([0.05, 0.15, 0.25, 0.35, 0.5, 1.0], 24), dtype=torch.float32)
+    far = best_t.view(-1, group).amax(dim=1).repeat_interleave(group)
+    want = 0
+    for i in range(n):
+        r = i // 12
+        for k in range(3):
+            if float(c.te[r, k]) <= float(far[i]):
+                tile = int(c.order[r, k])
+                want += int((ids[tile * 16:(tile + 1) * 16] >= 0).sum())
+    got = chip_smoke.nearest_culled_pairs(c, best_t, n, group=group)
+    assert got == want and 0 < got < n * 40

@@ -173,24 +173,27 @@ def _culled_case(T, N, dev, seed=0):
 @pytest.mark.parametrize("T,N", [(300, 257), (3000, 4097), (12000, 20000)])
 def test_k4_k5_match_plain_and_k1_k2(dev, T, N):
     """On the same schedule K4 and K5 with separately rounded dots equal
-    their plain versions (same f32 arithmetic, same visit order): ids, t /
-    u / v to 1e-6, flags bit for bit; and culling changes no answer: K1 /
-    K2 with separately rounded dots agree on the same rays. K5 with fused
-    dots (the default) differs from its plain version and from fused K2
-    only on a counted fringe (0.1% of rays, one for small batches)."""
+    their plain versions bit for bit (same f32 arithmetic, same visit
+    order): ids, t / u / v and flags; and culling changes no answer: K1 /
+    K2 with separately rounded dots agree on the same rays. With fused
+    dots (the default) K4's ids and K5's flags differ from their plain
+    versions, and K5's from fused K2, only on a counted fringe (0.1% of
+    rays, one for small batches), t / u / v on equal ids to 1e-6."""
     accel, ro, rd, excl, tmax = _culled_case(T, N, dev, seed=T)
     c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl)
     args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
     n4 = intersect_cuda.nearest_hit_culled.launches
-    hk = intersect_cuda.nearest_hit_culled(*args)
+    hk = intersect_cuda.nearest_hit_culled(*args, rows=c.rows)
     assert intersect_cuda.nearest_hit_culled.launches == n4 + 1
-    hp = intersect_cuda.nearest_hit_culled_plain(*args)
-    assert (hk.tri_id == hp.tri_id).all()
+    hp = intersect_cuda.nearest_hit_culled_plain(*args, rows=c.rows)
+    _assert_k4_matches(args, c.rows, hp, max(1, N // 1000))
+    same = hk.tri_id == hp.tri_id
+    assert int((~same).sum()) <= max(1, N // 1000)
     for a, b in ((hk.t, hp.t), (hk.u, hp.u), (hk.v, hp.v)):
-        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(a[same], b[same], rtol=1e-6, atol=1e-6)
     g = ops_intersect.ray_features(ro, rd).contiguous()
     h1 = intersect_cuda.nearest_hit(g, accel.W, accel.tri_ids, excl, fma=False)
-    assert (hk.tri_id[:N] == h1.tri_id).all()
+    assert (hp.tri_id[:N] == h1.tri_id).all()
     assert bool(h1.valid.any())
 
     # K5: separately rounded, the plain version bit for bit and K2's
@@ -216,19 +219,22 @@ def test_culled_wrappers_reject_bad_schedules(dev):
     with pytest.raises(ValueError):          # rays not padded to the ray tile
         intersect_cuda.nearest_hit_culled(c.g[:300].contiguous(), c.W, c.tri_ids,
                                           c.excl[:300].contiguous(), c.bound[:300].contiguous(),
-                                          c.order, c.te)
+                                          c.order, c.te, rows=c.rows)
     with pytest.raises(TypeError):
         intersect_cuda.nearest_hit_culled(c.g, c.W, c.tri_ids, c.excl, c.bound,
-                                          c.order.long(), c.te)
-    c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl, tmax)
-    args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
-    for rows in (-1, c.W.shape[0] + 1):      # real rows outside W
-        with pytest.raises(ValueError):
-            intersect_cuda.occluded_culled(*args, rows=rows)
+                                          c.order.long(), c.te, rows=c.rows)
     shifted = torch.empty(c.W.numel() + 1, device=dev)[1:].view(c.W.shape)
     shifted.copy_(c.W)                       # 4 bytes off the 16-byte grid
-    with pytest.raises(ValueError):
-        intersect_cuda.occluded_culled(c.g, shifted, *args[2:], rows=c.rows)
+    k4 = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+    c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl, tmax)
+    k5 = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+    for kernel, args in ((intersect_cuda.nearest_hit_culled, k4),
+                         (intersect_cuda.occluded_culled, k5)):
+        for rows in (-1, c.W.shape[0] + 1):  # real rows outside W
+            with pytest.raises(ValueError):
+                kernel(*args, rows=rows)
+        with pytest.raises(ValueError):
+            kernel(args[0], shifted, *args[2:], rows=c.rows)
 
 
 def _quarters_case(dev, T=1000):
@@ -321,6 +327,141 @@ def test_k5_all_blocked_exit_with_copies_in_flight(dev):
         for _ in range(10):
             out = intersect_cuda.occluded_culled(*args, rows=c.rows, fma=fma)
         assert torch.equal(out, bp)
+
+
+def _assert_k4_matches(args, rows, hp, fringe, reps=1):
+    """K4 with separately rounded dots is the plain version ``hp`` bit for
+    bit (ids, t, u, v); with fused dots its ids differ on ``fringe`` rays at
+    most. ``reps`` launches of each."""
+    for _ in range(reps):
+        hs = intersect_cuda.nearest_hit_culled(*args, rows=rows, fma=False)
+        for a, b in ((hs.tri_id, hp.tri_id), (hs.t, hp.t), (hs.u, hp.u), (hs.v, hp.v)):
+            assert torch.equal(a, b)
+        hk = intersect_cuda.nearest_hit_culled(*args, rows=rows)
+        assert int((hk.tri_id != hp.tri_id).sum()) <= fringe
+
+
+#: The crafted tie case: triangle S at rows 10 (tile 0) and 300 (tile 1).
+TIE_ORIGINAL, TIE_COPY = 10, 300
+
+
+def _tie_accel(dev, seed=0):
+    """Two triangle tiles of 256 rows that both hold one large triangle S at
+    z = 5 (rows TIE_ORIGINAL and TIE_COPY; ids are the rows) and 512 rays
+    from near the origin towards +z, all hitting S. Tile 0's other
+    triangles lie behind S (z 6.4-9.6), tile 1's in front of it but off the
+    rays (x 20-30), so the schedule visits tile 1 first and every ray ties
+    between the copies of S. A hand-built accel, rows in this order."""
+    g = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    v0 = np.concatenate([np.c_[g.uniform(-1, 1, (256, 2)), g.uniform(7, 9, 256)],
+                         np.c_[g.uniform(20, 30, 256), g.uniform(-1, 1, 256),
+                               g.uniform(1, 2, 256)]])
+    e1, e2 = g.uniform(-0.3, 0.3, (512, 3)), g.uniform(-0.3, 0.3, (512, 3))
+    for i in (TIE_ORIGINAL, TIE_COPY):
+        v0[i], e1[i], e2[i] = [-50.0, -50.0, 5.0], [200.0, 0.0, 0.0], [0.0, 200.0, 0.0]
+    v0, e1, e2 = f(v0), f(e1), f(e2)
+    accel = ops_intersect.TriAccel(
+        W=intersect_ref.pack_tri_matrix(v0, e1, e2).contiguous(),
+        tri_ids=torch.arange(512, dtype=torch.int32, device=dev),
+        aabb_lo=torch.minimum(v0, torch.minimum(v0 + e1, v0 + e2)),
+        aabb_hi=torch.maximum(v0, torch.maximum(v0 + e1, v0 + e2)))
+    ro = np.c_[g.uniform(-0.5, 0.5, (512, 2)), np.zeros(512)]
+    rd = np.tile([0.0, 0.0, 1.0], (512, 1)) + g.normal(size=(512, 3)) * 0.05
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    return accel, f(ro), f(rd), torch.full((512,), -1, dtype=torch.int32, device=dev)
+
+
+def test_k4_tie_goes_to_the_first_visited_tile(dev):
+    """The crafted tie case: the schedule visits tile 1 first, so every ray
+    takes S's copy in it (row TIE_COPY), fused or not, though the lowest
+    index is TIE_ORIGINAL; both instances are the plain version's."""
+    accel, ro, rd, excl = _tie_accel(dev)
+    c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl)
+    args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+    assert c.order.tolist() == [[1, 0]]
+    hp = intersect_cuda.nearest_hit_culled_plain(*args, rows=c.rows)
+    assert bool((hp.tri_id == TIE_COPY).all())
+    _assert_k4_matches(args, c.rows, hp, 0)
+
+
+def test_k4_quarters_end_at_different_tiles(dev):
+    """One ray tile on a hand-made schedule of 8 triangle tiles (visit order
+    a permutation, te[k] = k + 0.5, every row zero but one): visit k's
+    triangle lies at z = k + 1 and covers the rays of quarter k // 2 only,
+    each quarter off along x. Quarter q hits at visit 2q, in the first or
+    the second stage of the tile, and its CTA's walk ends there, with the
+    next tile's copy in flight: the four CTAs end at different tiles. K4
+    equals the plain version; ids are the expected rows."""
+    tile, nb, N = 256, 8, intersect_cuda.RAY_TILE
+    perm = [5, 2, 7, 0, 3, 6, 1, 4]
+    rows = [(37 * k + 100) % tile for k in range(nb)]
+    g0 = np.random.default_rng(4)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    v0, e1, e2 = np.zeros((nb * tile, 3)), np.zeros((nb * tile, 3)), np.zeros((nb * tile, 3))
+    for k in range(nb):
+        i = perm[k] * tile + rows[k]
+        v0[i], e1[i], e2[i] = [10.0 * (k // 2) - 2.0, -2.0, k + 1.0], [8.0, 0.0, 0.0], [0.0, 8.0, 0.0]
+    W = intersect_ref.pack_tri_matrix(f(v0), f(e1), f(e2)).contiguous()
+    q = np.arange(N) // 128
+    ro = np.c_[10.0 * q + g0.uniform(-0.5, 0.5, N), g0.uniform(-0.5, 0.5, N), np.zeros(N)]
+    rd = np.tile([0.0, 0.0, 1.0], (N, 1)) + g0.normal(size=(N, 3)) * 0.02
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    args = (intersect_ref.ray_features(f(ro), f(rd)).contiguous(), W,
+            torch.arange(nb * tile, dtype=torch.int32, device=dev),
+            torch.full((N,), -1, dtype=torch.int32, device=dev), torch.full((N,), 100.0, device=dev),
+            torch.tensor([perm], dtype=torch.int32, device=dev),
+            torch.arange(nb, device=dev, dtype=torch.float32)[None] + 0.5)
+    hp = intersect_cuda.nearest_hit_culled_plain(*args, rows=nb * tile)
+    want = torch.tensor([perm[2 * qq] * tile + rows[2 * qq] for qq in q], dtype=torch.int32,
+                        device=dev)
+    assert torch.equal(hp.tri_id, want)
+    _assert_k4_matches(args, nb * tile, hp, 0, reps=2)
+
+
+@pytest.mark.parametrize("T", [257, 300, 511, 700, 1000])
+def test_k4_last_schedule_tile_partly_padding(dev, T):
+    """Triangle counts whose last schedule tile (256 rows) is partly
+    padding: K4 copies and computes only the rows below ``rows``, and with
+    ``rows`` cut below the real count it leaves the cut rows out exactly as
+    the plain version does."""
+    accel, ro, rd, excl, _ = _culled_case(T, 3000, dev, seed=T)
+    c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl)
+    args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+    assert c.rows == T and c.W.shape[0] % 256 == 0 and c.W.shape[0] > T
+    for rows in (T, T - 100, 130):
+        hp = intersect_cuda.nearest_hit_culled_plain(*args, rows=rows)
+        assert bool(hp.valid.any())
+        _assert_k4_matches(args, rows, hp, 3)
+
+
+def test_k4_walk_ends_with_copies_in_flight(dev):
+    """3,000 stacked large triangles (z = 1 + 0.001 i; 12 schedule tiles of
+    256, fed as 24 ring stages) over rays towards +z (even ray tiles): the
+    first tile holds every ray's hit, so each CTA's walk ends after it while
+    the next tile's first stage is in flight, and waits for it. Rays towards
+    -z (odd ray tiles) miss the scene box (cap 0), so their CTAs visit no
+    tile. Launched many times over, K4 stays the plain version."""
+    T, N = 3000, 4096
+    g0 = np.random.default_rng(9)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    v0 = np.tile([-50.0, -50.0, 1.0], (T, 1)) + np.outer(np.arange(T) * 1e-3, [0.0, 0.0, 1.0])
+    e1, e2 = np.tile([200.0, 0.0, 0.0], (T, 1)), np.tile([0.0, 200.0, 0.0], (T, 1))
+    accel = ops_intersect._build(f(v0), f(e1), f(e2), torch.arange(T, dtype=torch.int32,
+                                                                   device=dev),
+                                 ops_intersect.TRI_BLOCK)
+    up = (np.arange(N) // intersect_cuda.RAY_TILE) % 2 == 0
+    ro = np.concatenate([g0.uniform(-0.5, 0.5, (N, 2)), np.zeros((N, 1))], -1)
+    rd = np.tile([0.0, 0.0, 1.0], (N, 1)) + g0.normal(size=(N, 3)) * 0.05
+    rd[:, 2] *= np.where(up, 1.0, -1.0)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    excl = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    c = ops_intersect.culled_call(accel, slice(None), f(ro), f(rd), excl)
+    args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+    hp = intersect_cuda.nearest_hit_culled_plain(*args, rows=c.rows)
+    assert torch.equal(hp.tri_id, torch.from_numpy(np.where(up, 0, -1).astype(np.int32)).to(dev))
+    assert c.order.shape[1] == 12 and bool((c.bound.view(-1, 512)[1::2] == 0).all())
+    _assert_k4_matches(args, c.rows, hp, 0, reps=10)
 
 
 #: K3's threads per point (csrc/arvo.cu G).

@@ -15,7 +15,8 @@ between tiles whose te agree to that; given JAX's schedule, the port's
 plain versions return the same triangle ids and blocked flags; with their
 own schedule, ids and flags equal except a fringe of 0.5% of rays (XLA
 contracts multiply-adds, the port rounds every op). K4 / K5 against their
-plain versions on a card: tests/test_torch_cuda.py."""
+plain versions on a card: tests/test_torch_cuda.py, whose crafted tie case
+(:func:`test_torch_cuda._tie_accel`) is also run here against JAX."""
 
 import dataclasses
 import os
@@ -35,6 +36,7 @@ from monte_carlo_path_tracing_tpu.scene import load_scene as jax_load_scene
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as tops
 from monte_carlo_path_tracing_tpu_torch.ops import intersect_cuda as tic
 
+from test_torch_cuda import TIE_COPY, TIE_ORIGINAL, _tie_accel
 from test_torch_scene import torch_single_thread  # noqa: F401  (autouse)
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
@@ -186,7 +188,7 @@ def test_culled_plain_matches_jax_kernels(monkeypatch, case):
     idx_j, s = _jax_culled(monkeypatch, accel, ro, rd, excl)
     ids_j = _ids(idx_j, s["ids"])
     args = [_t(s[k]) for k in ("g", "W", "ids", "excl", "bound", "order", "te")]
-    hp = tic.nearest_hit_culled_plain(*args)
+    hp = tic.nearest_hit_culled_plain(*args, rows=args[1].shape[0])
     np.testing.assert_array_equal(hp.tri_id[:N].numpy(), ids_j)
 
     scaled = tmax * (1.0 - jops.OCCLUSION_MARGIN)
@@ -243,7 +245,8 @@ def test_culled_wrappers_take_plain_versions_on_cpu():
     c = tops.culled_call(pa, slice(None), _t(ro), _t(rd), _t(excl))
     assert c.g.shape[0] % tic.RAY_TILE == 0 and c.order.shape == c.te.shape
     args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
-    a, b = tic.nearest_hit_culled(*args), tic.nearest_hit_culled_plain(*args)
+    a, b = (tic.nearest_hit_culled(*args, rows=c.rows),
+            tic.nearest_hit_culled_plain(*args, rows=c.rows))
     assert (a.tri_id == b.tri_id).all() and torch.equal(a.t, b.t)
     c = tops.culled_call(pa, slice(None), _t(ro), _t(rd), _t(excl), _t(tmax))
     args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
@@ -302,3 +305,53 @@ def test_culled_call_real_rows(monkeypatch, chunk):
                          aabb_hi=accel.aabb_hi)
     assert tops.culled_call(hand, slice(None), ro, rd, excl, tmax).rows == 3584
 
+
+
+def test_k4_tie_goes_to_the_first_visited_tile(monkeypatch):
+    """One triangle in two triangle tiles, the higher-indexed tile visited
+    first: every ray ties between the two copies, and the first visited
+    copy wins, in JAX's culled kernel body and in the port's plain K4 (on
+    either schedule); the all-pairs rule, lowest index, picks the other."""
+    accel, ro, rd, excl = _tie_accel("cpu")
+    j = SimpleNamespace(**{k: jnp.asarray(getattr(accel, k).numpy())
+                           for k in ("W", "tri_ids", "aabb_lo", "aabb_hi")})
+    idx_j, s = _jax_culled(monkeypatch, j, *(jnp.asarray(x.numpy()) for x in (ro, rd, excl)))
+    assert np.asarray(s["order"]).tolist() == [[1, 0]]
+    np.testing.assert_array_equal(_ids(idx_j, s["ids"]), TIE_COPY)
+    args = [_t(s[k]) for k in ("g", "W", "ids", "excl", "bound", "order", "te")]
+    assert bool((tic.nearest_hit_culled_plain(*args, rows=512).tri_id == TIE_COPY).all())
+
+    c = tops.culled_call(accel, slice(None), ro, rd, excl)
+    assert c.order.tolist() == [[1, 0]] and c.rows == 512
+    args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+    assert bool((tic.nearest_hit_culled_plain(*args, rows=c.rows).tri_id == TIE_COPY).all())
+    assert bool((tops.intersect(accel, ro, rd, excl).tri_id == TIE_ORIGINAL).all())
+
+
+@pytest.mark.parametrize("chunk", [None, 1024])
+def test_k4_plain_leaves_padding_rows_out(monkeypatch, chunk):
+    """The plain K4 with ``rows`` = culled_call's real-row count returns
+    what it returns with every row (the rows above are padding, never
+    accepted): ids and t / u / v bit for bit, on Veach's camera fan in one
+    call or in chunks of 1,024 triangles; with no rows, nothing is hit."""
+    from monte_carlo_path_tracing_tpu_torch.scene import load_scene
+
+    s = load_scene(os.path.join(SCENES, "veach-mis", "veach-mis.obj"), device="cpu")
+    accel = tops.build_accel(s)
+    _, ro, rd, excl, _ = _fan(16)
+    ro, rd, excl = _t(ro), _t(rd), _t(excl)
+    if chunk:
+        monkeypatch.setattr(tops, "CULL_CHUNK_TRIS", chunk)
+    padded = hits = 0
+    for sl in tops._chunks(accel):
+        c = tops.culled_call(accel, sl, ro, rd, excl)
+        args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+        full = tic.nearest_hit_culled_plain(*args, rows=c.W.shape[0])
+        part = tic.nearest_hit_culled_plain(*args, rows=c.rows)
+        for a, b in ((part.tri_id, full.tri_id), (part.t, full.t), (part.u, full.u),
+                     (part.v, full.v)):
+            assert torch.equal(a, b)
+        assert not bool(tic.nearest_hit_culled_plain(*args, rows=0).valid.any())
+        padded += c.W.shape[0] - c.rows
+        hits += int(full.valid.sum())
+    assert padded == 448 and hits > 0
