@@ -35,14 +35,25 @@ exits non-zero without printing a result:
    ``primary_cache``, which routes to the primary-hit cache; all five
    kernels must launch; checksum and ray count held as in 5;
 7. two devices: the same entry point renders Veach at 64^2, 4 spp on the
-   card and on the CPU, uncached and cached; ray counts and images agree.
+   card and on the CPU, uncached and cached; ray counts and images agree;
+8. end to end, fixed depth (the CLI's default render and the gradient
+   path): ``render_image`` at 1024^2, 2 spp, MIS + spherical-triangle NEE,
+   depth 32, ray_chunk 65,536, seed 0; K1-K3 must launch and K4 / K5 must
+   not; the image is held against the cached regeneration render of the
+   same configuration in the same phase (the same streams: no path reaches
+   depth 32);
+9. gradient: ``pixel_grad`` through K1-K3 on Veach 64^2 (MIS, depth 4) on
+   the card against the same call on the CPU (finite, cosine per material
+   field); then one full 65,536-ray chunk of the 1024^2 camera forward and
+   backward at depth 32 on the card, with time and peak memory.
 
 The last lines are a JSON object of per-kernel results (time, plain
 version's time, bound — the larger of the operations this run's inputs
 need over the f32 peak and the bytes moved over the memory rate — and
-share of the bound, launches on the cached render; K4 also ``k1_ms`` and K5
-``k2_ms``, the all-pairs kernel on the same rays, and both ``sep_ms``, the
-separately rounded instance), the card's
+share of the bound, launches on the cached render and, as
+``launches_fixed_depth``, on the fixed-depth render; K4 also ``k1_ms`` and
+K5 ``k2_ms``, the all-pairs kernel on the same rays, and both ``sep_ms``,
+the separately rounded instance), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
@@ -59,13 +70,14 @@ import numpy as np
 import torch
 
 from monte_carlo_path_tracing_tpu_torch.core import rng
-from monte_carlo_path_tracing_tpu_torch.integrator import common, regen
+from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
+from monte_carlo_path_tracing_tpu_torch.integrator import common, regen, render_rays
 from monte_carlo_path_tracing_tpu_torch.ops import _build, arvo_cuda, intersect_cuda
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.render.camera import (
-    camera_basis, pixel_len, primary_dirs,
+    camera_basis, generate_rays, pixel_len, primary_dirs,
 )
-from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image_regen
+from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image, render_image_regen
 from monte_carlo_path_tracing_tpu_torch.sampling import light_spherical, phong
 from monte_carlo_path_tracing_tpu_torch.scene import load_scene
 from monte_carlo_path_tracing_tpu_torch.utils.config import RenderConfig
@@ -124,6 +136,15 @@ PEAK_F32, PEAK_BYTES = 67e12, 3.35e12
 FAN_ROW0, FAN_ROWS = 480, 32
 #: Rays a K4 CTA walks the schedule for (csrc/intersect.cu: RB_SLOTS x RB_R).
 K4_CTA_RAYS = 128
+#: The fixed-depth phase: render_image at RES^2 with the configuration's
+#: defaults (max_depth 32, ray_chunk 65,536) at FD_SPP spp; its image
+#: against the cached regen render: checksum gap and the share of pixels
+#: beyond rtol 1e-2 / atol 1e-3.
+FD_SPP, FD_CHECKSUM_GAP, FD_PIXEL_SHARE = 2, 1e-3, 0.01
+#: The gradient phase: Veach at GRAD_RES^2, MIS, depth GRAD_DEPTH, card
+#: against CPU (cosine per material field at least GRAD_COS); then the
+#: GRAD_CHUNK-th 65,536-pixel chunk of the RES^2 camera at depth 32.
+GRAD_RES, GRAD_DEPTH, GRAD_COS, GRAD_CHUNK = 64, 4, 0.999, 8
 
 
 def log(*a):
@@ -638,6 +659,115 @@ def phase_end_to_end(scene, cached: bool):
     return launches, dict(seconds=res.seconds, rays=res.rays_traced, checksum=checksum)
 
 
+def fixed_depth_cfg() -> RenderConfig:
+    return RenderConfig(width=RES, height=RES, spp=FD_SPP, estimator="mis",
+                        light_sampler="spherical_triangle", max_depth=32, seed=0,
+                        ray_chunk=1 << 16)
+
+
+def phase_fixed_depth(scene, kernels):
+    """render_image (the fixed-depth wavefront) at the full width; K1-K3
+    launch, K4 / K5 do not; the image agrees with the cached regen render
+    of the same configuration, rendered after it. The wall time is split
+    into bounces (one K1 launch each) and the kernels' share, launches x
+    their time at 65,536 rays from ``kernels``."""
+    sc = with_res(scene, RES, RES)
+    cfg = fixed_depth_cfg()
+    reset_counters()
+    res = render_image(sc, cfg)
+    launches = counters()
+    ref = render_image_regen(sc, cfg, lanes=LANES_CACHED)
+    a, b = res.image, ref.image
+    assert a.shape == (RES, RES, 3) and np.isfinite(a).all(), "non-finite image"
+    checksum = float((a.astype(np.float64) * FD_SPP).sum())
+    ref_checksum = float((b.astype(np.float64) * FD_SPP).sum())
+    gap = checksum / ref_checksum - 1.0
+    n_fine = int((~np.isclose(a, b, rtol=1e-4, atol=1e-5).all(-1)).sum())
+    n_div = int((~np.isclose(a, b, rtol=1e-2, atol=1e-3).all(-1)).sum())
+    paths = RES * RES * FD_SPP
+    log(f"[e2e fixed-depth] veach {RES}^2 x {FD_SPP} spp, depth {cfg.max_depth}, ray_chunk "
+        f"{cfg.ray_chunk}: {res.seconds:.2f} s, {paths / res.seconds:.0f} paths/s, fb_checksum "
+        f"{checksum:.1f}; launches {launches}")
+    log(f"[e2e fixed-depth] cached regen of the same configuration: {ref.seconds:.2f} s, "
+        f"fb_checksum {ref_checksum:.1f}; checksum gap {gap:+.3e} (bound {FD_CHECKSUM_GAP:g}); "
+        f"of {RES * RES} pixels {n_fine} beyond rtol 1e-4 / atol 1e-5, {n_div} beyond rtol "
+        f"1e-2 / atol 1e-3 (bound {FD_PIXEL_SHARE:.0%})")
+    assert all(launches[k] > 0 for k in list(KERNELS)[:3]), f"K1-K3 did not launch: {launches}"
+    assert all(launches[k] == 0 for k in list(KERNELS)[3:]), f"a culled kernel ran: {launches}"
+    chunks = RES * RES * FD_SPP // cfg.ray_chunk
+    bounces = launches["K1 nearest_hit"]
+    kernel_s = sum(launches[e["name"]] * e["ms"] for e in kernels) / 1e3
+    log(f"[e2e fixed-depth] {bounces} bounces in {chunks} chunks ({bounces / chunks:.2f} a "
+        f"chunk), {res.seconds / bounces * 1e3:.1f} ms a bounce; K1-K3 launches x their ms at "
+        f"65,536 rays: {kernel_s:.3f} s ({kernel_s / res.seconds:.1%} of the wall)")
+    assert abs(gap) <= FD_CHECKSUM_GAP, "fixed-depth and regen checksums disagree"
+    assert n_div <= FD_PIXEL_SHARE * RES * RES, "fixed-depth and regen images disagree"
+    return launches
+
+
+def _pixel_grad(scene, cfg, idx):
+    """pixel_grad of the plain sum of radiance over camera rays ``idx``:
+    (gradients by field as float64 on the CPU, seconds, launches)."""
+    dev = scene.device
+    ro, rd = generate_rays(scene.camera, idx)
+    key = rng.lane_keys(rng.sample_key(rng.base_key(cfg.seed, device=dev), 0), idx)
+    sel = torch.ones(idx.shape[0], 3, device=dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    g = pixel_grad(scene, cfg, key, ro, rd, sel)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    fields = {f: getattr(g, f).detach().cpu().double().flatten()
+              for f in ("kd", "ks", "ns", "emission")}
+    return fields, dt, counters()
+
+
+def phase_gradient(scene_cpu):
+    """pixel_grad through K1-K3 on the card against the CPU at GRAD_RES^2;
+    then one full chunk of the main camera forward and backward."""
+    small = with_res(scene_cpu, GRAD_RES, GRAD_RES)
+    cfg = RenderConfig(width=GRAD_RES, height=GRAD_RES, spp=1, estimator="mis",
+                       light_sampler="spherical_triangle", max_depth=GRAD_DEPTH, seed=0)
+    n = GRAD_RES * GRAD_RES
+    card, t_card, launches = _pixel_grad(small.to("cuda"), cfg, torch.arange(n, device="cuda"))
+    cpu, t_cpu, _ = _pixel_grad(small, cfg, torch.arange(n))
+    cosines = {}
+    for f, a in cpu.items():
+        b = card[f]
+        assert bool(torch.isfinite(b).all()), f"non-finite {f} gradient on the card"
+        na, nb = float(a.norm()), float(b.norm())
+        cosines[f] = 1.0 if na == nb == 0.0 else float(a @ b) / max(na * nb, 1e-300)
+        gap = float((a - b).norm()) / max(na, 1e-300)
+        log(f"[gradient] veach {GRAD_RES}^2 MIS depth {GRAD_DEPTH}, d sum / d {f}: cosine card vs "
+            f"cpu {cosines[f]:.7f} (bound {GRAD_COS}), relative gap {gap:.3e}, |g| {na:.4g}")
+    log(f"[gradient] card {t_card:.2f} s, cpu {t_cpu:.2f} s; launches on the card {launches}")
+    assert all(launches[k] > 0 for k in list(KERNELS)[:3]), f"K1-K3 did not launch: {launches}"
+    assert all(c >= GRAD_COS for c in cosines.values()), "card and CPU gradients disagree"
+
+    sc = with_res(scene_cpu, RES, RES).to("cuda")
+    cfg = fixed_depth_cfg()
+    idx = GRAD_CHUNK * cfg.ray_chunk + torch.arange(cfg.ray_chunk, device="cuda")
+    ro, rd = generate_rays(sc.camera, idx)
+    key = rng.lane_keys(rng.sample_key(rng.base_key(0, device="cuda"), 0), idx)
+    with torch.no_grad():
+        render_rays(sc, cfg, key, ro, rd)                    # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_rays(sc, cfg, key, ro, rd)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads, t_grad, launches = _pixel_grad(sc, cfg, idx)
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+    log(f"[gradient] one {cfg.ray_chunk}-ray chunk of the {RES}^2 camera, depth {cfg.max_depth}: "
+        f"forward {t_fwd:.3f} s, forward + backward {t_grad:.3f} s, peak memory above the "
+        f"scene {peak / 2**20:.1f} MiB; gradients finite {finite}; launches {launches}")
+    assert finite, "non-finite gradient on the full chunk"
+
+
 def phase_two_devices(scene_cpu):
     small = with_res(scene_cpu, 64, 64)
     for cache in (False, None):
@@ -673,8 +803,11 @@ def main():
     phase_end_to_end(scene, cached=False)
     launches, _ = phase_end_to_end(scene, cached=True)
     phase_two_devices(scene_cpu)
+    fixed = phase_fixed_depth(scene, kernels)
+    phase_gradient(scene_cpu)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_fixed_depth"] = fixed[k["name"]]
     kernels.sort(key=lambda k: k["name"])
     print(json.dumps({"kernels": kernels}))
     print(smi)

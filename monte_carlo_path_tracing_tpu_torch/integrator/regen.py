@@ -36,7 +36,7 @@ import torch
 from monte_carlo_path_tracing_tpu_torch.core import rng, vecmath as vm
 from monte_carlo_path_tracing_tpu_torch.integrator import common
 from monte_carlo_path_tracing_tpu_torch.integrator.wavefront import (
-    _direct_term, _light_pdf_of_hit, _nee_term, _sample_light,
+    COMPAT_ITEM, _direct_term, _light_pdf_of_hit, _nee_term, _sample_light,
 )
 from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
@@ -91,16 +91,14 @@ def _check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item, for what the
     port does not run yet."""
     todo = [
-        (cfg.mis_blocker_compat,
-         "mis_blocker_compat / blocker-chain queue (ROADMAP queue 1, item 16)"),
-        (cfg.ref_mis_weights,
-         "ref_mis_weights light-accel MIS (ROADMAP queue 1, item 16)"),
-        (cfg.ray_sort, "ray_sort lane sorting (ROADMAP queue 1, item 16)"),
-        (cfg.accel == "grid", "accel='grid' (ROADMAP queue 1, item 16)"),
+        (cfg.mis_blocker_compat, "mis_blocker_compat / blocker-chain queue"),
+        (cfg.ref_mis_weights, "ref_mis_weights light-accel MIS"),
+        (cfg.ray_sort, "ray_sort lane sorting"),
+        (cfg.accel == "grid", "accel='grid'"),
     ]
     for bad, what in todo:
         if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
+            raise NotImplementedError(f"not ported yet: {what} ({COMPAT_ITEM})")
     if cfg.estimator not in (EST_MIS, EST_BRDF, EST_SPLIT):
         raise ValueError(f"render_regen does not run estimator {cfg.estimator!r}")
 
@@ -197,7 +195,7 @@ def primary_prepass(
 
         # All rounds of the chunk as one [S] batch, row-major (round, pixel).
         lk0 = rng.fold_in(rng.fold_in(k_r[:, None, :], gpix[None, :]).reshape(S, 2), 0)
-        survive = rng.uniform(rng.fold_in(lk0, rng.P_RR), (S,)) < cfg.rr_prob
+        survive, _ = common.russian_roulette(rng.fold_in(lk0, rng.P_RR), S, cfg.rr_prob)
         if picks:
             # rng.pick_weighted against the cached CDF, densely: the CDF is
             # non-decreasing, so searchsorted(right) = count(cdf <= u wsum).
@@ -419,7 +417,7 @@ def render_regen(
 
         # Russian roulette (Q6): mis gates both strategies, split only the
         # continuation, brdf the bounce.
-        survive = rng.uniform(rng.fold_in(lk_d, rng.P_RR), (C,)) < cfg.rr_prob
+        survive, _ = common.russian_roulette(rng.fold_in(lk_d, rng.P_RR), C, cfg.rr_prob)
         wsum = zero
         tp_rr = w_rr
         if est == EST_MIS:

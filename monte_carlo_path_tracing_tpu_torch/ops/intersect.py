@@ -11,9 +11,9 @@ kernels K4 / K5 on the padded arrays with
 shadow batches) — kernels for CUDA tensors, their plain torch versions for
 CPU tensors.
 
-Not ported yet (ROADMAP queue 1, item 16): ``auto_policy`` with in-loop
-culling (it comes with ``ray_sort``), the lights-only accel and the
-uniform grid.
+Not ported yet (ROADMAP queue 1, "Compat and accel extras"):
+``auto_policy`` with in-loop culling (it comes with ``ray_sort``), the
+lights-only accel and the uniform grid.
 """
 
 from __future__ import annotations
@@ -97,8 +97,11 @@ def _build(v0, e1, e2, ids, block: int) -> TriAccel:
         ids = torch.cat([ids, torch.full((pad,), -2, dtype=torch.int32, device=dev)])
         lo = torch.cat([lo, torch.full((pad, 3), float("inf"), device=dev)])
         hi = torch.cat([hi, torch.full((pad, 3), float("-inf"), device=dev)])
-    return TriAccel(W=W.contiguous(), tri_ids=ids.contiguous(),
-                    aabb_lo=lo.contiguous(), aabb_hi=hi.contiguous(), num_tris=T)
+    # Geometry is not a differentiation target (materials and emission
+    # are): the accel never carries a gradient.
+    return TriAccel(W=W.detach().contiguous(), tri_ids=ids.contiguous(),
+                    aabb_lo=lo.detach().contiguous(), aabb_hi=hi.detach().contiguous(),
+                    num_tris=T)
 
 
 def build_accel(scene: Scene, block: int = TRI_BLOCK) -> TriAccel:

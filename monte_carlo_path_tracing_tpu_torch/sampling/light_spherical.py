@@ -118,7 +118,10 @@ def sample(key, scene: Scene, x1: torch.Tensor, n: torch.Tensor,
     C = arvo_cuda.pack_consts(scene) if consts is None else consts
     k_sel, k_warp = rng.fold_in(key, 0), rng.fold_in(key, 1)
     u = rng.uniform(k_sel, (x1.shape[0],))
-    lidx, weights_sum = arvo_cuda.arvo_select(C, x1.contiguous(), n.contiguous(), u)
+    # The pick runs outside autograd (K3 on the card): a discrete choice,
+    # and weights_sum reaches only detached pdfs.
+    lidx, weights_sum = arvo_cuda.arvo_select(C.detach(), x1.detach().contiguous(),
+                                              n.detach().contiguous(), u)
     ls = sample_from_pick(k_warp, scene, x1, n, lidx, weights_sum, table=table)
     return ls, weights_sum
 
@@ -143,7 +146,9 @@ def sample_from_pick(k_warp, scene: Scene, x1, n, lidx, weights_sum, table=None)
 
     one = torch.ones_like(l_sum_s)
     pdf = torch.where(has, l_sum_s / torch.clamp(weights_sum, min=1e-30), one)
-    coord = torch.where(has[:, None], x1 + P * t[:, None], x1 - n)
+    # Detached sampling: the sampled point is a constant of differentiation;
+    # the emission stays attached for d/d(radiance).
+    coord = torch.where(has[:, None], x1 + P * t[:, None], x1 - n).detach()
     return LightSample(
         coord=coord,
         light_idx=lidx,

@@ -102,7 +102,10 @@ def sample_brdf(key, n, wo, kd, ks, ns, branch_pdf_compat: bool = False) -> Bsdf
     r = vm.reflect(wo, n)
     axis = torch.where(pick_spec[:, None], r, n)
     t, b = vm.orthonormal_basis(axis)
-    wi = vm.from_local(local, t, b, axis)
+    # Detached sampling: the sampled direction is a constant of
+    # differentiation (gradients flow through f_r, emission and cosines
+    # evaluated at the sample, not through the warp).
+    wi = vm.from_local(local, t, b, axis).detach()
 
     if branch_pdf_compat:
         pdf_d = cos_t_d * INV_PI

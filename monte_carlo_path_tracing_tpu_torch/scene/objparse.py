@@ -8,7 +8,8 @@ triangulated (tinyobj's default, which the reference relies on since it
 indexes ``indices[3*f+v]`` everywhere, Myobj.cpp:94,137,641).
 
 Same parser as ``monte_carlo_path_tracing_tpu/scene/objparse.py``. The
-native ctypes loader is not ported yet (ROADMAP queue 1, item 4).
+native ctypes loader is not ported yet (ROADMAP queue 1, "Remainders of
+done slices").
 
 Output is plain numpy (device transfer happens in scene.build).
 """

@@ -93,6 +93,9 @@ class Scene:
         e2 = self.tri_e2[self.light_tri_ids]
         return v0, v0 + e1, v0 + e2
 
+    def with_materials(self, materials: Materials) -> "Scene":
+        return dataclasses.replace(self, materials=materials)
+
     def to(self, device) -> "Scene":
         """The same scene with every tensor on ``device``."""
         return _to(self, torch.device(device))

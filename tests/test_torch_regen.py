@@ -111,7 +111,8 @@ def test_render_regen_returns_sums_and_uses_plain_versions_on_cpu(cornell_scene)
     dict(ray_sort=True), dict(accel="grid"),
 ])
 def test_unported_options_raise(cornell_scene, change):
-    """One case per option still unported (ROADMAP queue 1, item 16)."""
+    """One case per option still unported (ROADMAP queue 1, "Compat and accel
+    extras")."""
     _, ts = _pair(cornell_scene, 8)
     cfg = RenderConfig(width=8, height=8, spp=1, **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
