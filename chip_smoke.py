@@ -45,7 +45,26 @@ exits non-zero without printing a result:
 9. gradient: ``pixel_grad`` through K1-K3 on Veach 64^2 (MIS, depth 4) on
    the card against the same call on the CPU (finite, cosine per material
    field); then one full 65,536-ray chunk of the 1024^2 camera forward and
-   backward at depth 32 on the card, with time and peak memory.
+   backward at depth 32 on the card, with time and peak memory;
+10. auto cull: bathroom (29,596 triangles) at its own 1280x720, 4 spp, MIS +
+   spherical-triangle NEE, depth 16, seed 0, 65,536 lanes, through
+   ``render_image_regen`` with the default ``accel="auto"``: the loop sorts
+   its lanes and traces through K4 / K5, never K1 / K2; then the same render
+   with ``accel="all_pairs"`` (K1 / K2 in the loop): equal ray counts, a
+   bounded checksum gap; seconds, iterations and the sort's share of the
+   loop; K4 / K5 timed on one recorded sorted loop batch beside K1 / K2 on
+   the same rays;
+11. cli: ``python -m monte_carlo_path_tracing_tpu_torch.cli`` as a
+   subprocess: the Veach ``--regen`` render (1280x720, 8 spp, depth 16,
+   65,536 lanes) against the same command run in-process (``cli.main``,
+   whose kernel launches are read); a fixed-depth render of 2 spp
+   checkpointed every spp, resumed to 3 spp, against the uninterrupted 3 spp
+   command in-process;
+12. inverse: the CLI's ``inverse`` on cornell at its own 256^2 (depth 3,
+   4,096 rays a step, 30 steps, all four families): finite losses, kd error
+   below its start; one step timed in-process (forward, backward, peak
+   memory); ``recover_materials`` for 3 steps on cornell 32^2 on the card
+   against the CPU.
 
 The last lines are a JSON object of per-kernel results (time, plain
 version's time, bound — the larger of the operations this run's inputs
@@ -53,23 +72,31 @@ need over the f32 peak and the bytes moved over the memory rate — and
 share of the bound, launches on the cached render and, as
 ``launches_fixed_depth``, on the fixed-depth render; K4 also ``k1_ms`` and
 K5 ``k2_ms``, the all-pairs kernel on the same rays, and both ``sep_ms``,
-the separately rounded instance), the card's
+the separately rounded instance; K4 / K5 also ``launches_auto`` on
+bathroom's auto render and, on its recorded loop batch, ``loop_ms``,
+``loop_k1_ms`` / ``loop_k2_ms`` and ``loop_bound_ms``), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
 import torch
 
+from monte_carlo_path_tracing_tpu_torch import cli
 from monte_carlo_path_tracing_tpu_torch.core import rng
+from monte_carlo_path_tracing_tpu_torch.diff import grad as dgrad
+from monte_carlo_path_tracing_tpu_torch.diff import inverse
 from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
 from monte_carlo_path_tracing_tpu_torch.integrator import common, regen, render_rays
 from monte_carlo_path_tracing_tpu_torch.ops import _build, arvo_cuda, intersect_cuda
@@ -84,6 +111,10 @@ from monte_carlo_path_tracing_tpu_torch.utils.config import RenderConfig
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VEACH = os.path.join(ROOT, "scenes", "veach-mis", "veach-mis.obj")
+BATHROOM = os.path.join(ROOT, "scenes", "bathroom", "bathroom.obj")
+CORNELL = os.path.join(ROOT, "scenes", "cornell", "cornell.obj")
+#: Where the CLI phases write their images and checkpoints.
+WORK = os.path.join(ROOT, "build", "chip_smoke")
 
 #: The bench's configuration (bench.py:74-103): uncached with its lanes
 #: (bench.py:150-153), and cached with the lane count chosen on an H100:
@@ -145,6 +176,23 @@ FD_SPP, FD_CHECKSUM_GAP, FD_PIXEL_SHARE = 2, 1e-3, 0.01
 #: against CPU (cosine per material field at least GRAD_COS); then the
 #: GRAD_CHUNK-th 65,536-pixel chunk of the RES^2 camera at depth 32.
 GRAD_RES, GRAD_DEPTH, GRAD_COS, GRAD_CHUNK = 64, 4, 0.999, 8
+#: The auto-cull phase: bathroom at its own 1280x720, AUTO_SPP spp, depth 16,
+#: LANES_CACHED lanes; the bound on the checksum gap between its auto and
+#: all-pairs renders: the first gap measured on an H100 was +2.2e-11, the
+#: framebuffer's summation order alone, whose size varies from run to run;
+#: one path that diverged would move the ~1.5e7 sum by ~1e-7 or more; the
+#: loop iteration whose extension and shadow batches K4 / K5 are timed on.
+AUTO_SPP, AUTO_CHECKSUM_GAP, AUTO_BATCH_ITER = 4, 1e-9, 5
+#: The CLI phase: the Veach --regen render (CLI_SPP spp) against the same
+#: render in-process (index_add_ sums in another order: rtol / atol); the
+#: fixed-depth render checkpointed at CLI_FD_SPP spp and resumed to one more.
+CLI_SPP, CLI_RTOL, CLI_ATOL, CLI_FD_SPP = 8, 2e-4, 1e-5, 2
+#: The inverse phase: the CLI's inverse demo on cornell at its 256^2
+#: (INV_STEPS steps of INV_RAYS rays at depth 3, lr 0.06); then
+#: recover_materials for 3 steps on cornell INV_RES^2, card against CPU:
+#: losses to INV_LOSS_RTOL, latents to INV_LATENT_ATOL, about 3x the first
+#: gaps measured on an H100 (2.8e-7 and 9.5e-7).
+INV_STEPS, INV_RAYS, INV_RES, INV_LOSS_RTOL, INV_LATENT_ATOL = 30, 4096, 32, 1e-6, 3e-6
 
 
 def log(*a):
@@ -794,6 +842,343 @@ def phase_two_devices(scene_cpu):
         assert abs(mean_gap) <= 1e-3, "card and CPU image means disagree"
 
 
+def record_loop(fn):
+    """Run ``fn()`` with the regeneration loop instrumented: returns (its
+    result, loop iterations, host seconds spent in the lane sort, and the
+    arguments of the loop's culled extension and shadow traces at loop
+    iteration AUTO_BATCH_ITER of the first launch: {"ext": (ro, rd, excl),
+    "shadow": (ro, rd, t_max, excl)})."""
+    rec = {"iters": 0, "sort_s": 0.0, "sorts": 0, "in_loop": False, "batch": {}}
+    orig = (regen.render_regen, regen.sort_lanes, ops_intersect.intersect,
+            ops_intersect.occluded)
+
+    def loop(*a, **kw):
+        rec["in_loop"] = True
+        try:
+            out = orig[0](*a, **kw)
+        finally:
+            rec["in_loop"] = False
+        rec["iters"] += out[2]
+        return out
+
+    def sort(*a):
+        t0 = time.perf_counter()
+        out = orig[1](*a)
+        rec["sort_s"] += time.perf_counter() - t0
+        rec["sorts"] += 1
+        return out
+
+    def at_batch(kw):
+        return rec["in_loop"] and kw.get("cull") and rec["sorts"] == AUTO_BATCH_ITER
+
+    def intersect(*a, **kw):
+        if at_batch(kw):
+            rec["batch"].setdefault("ext", a[1:4])
+        return orig[2](*a, **kw)
+
+    def occluded(*a, **kw):
+        if at_batch(kw):
+            rec["batch"].setdefault("shadow", a[1:5])
+        return orig[3](*a, **kw)
+
+    regen.render_regen, regen.sort_lanes = loop, sort
+    ops_intersect.intersect, ops_intersect.occluded = intersect, occluded
+    try:
+        out = fn()
+    finally:
+        (regen.render_regen, regen.sort_lanes, ops_intersect.intersect,
+         ops_intersect.occluded) = orig
+    return out, rec["iters"], rec["sort_s"], rec["batch"]
+
+
+def _loop_batch_k4(accel, ro, rd, excl):
+    """K4 on a recorded loop extension batch against its plain version and
+    against K1 on the same rays; (K4 ms, K1 ms, K4 bound ms, K1 bound ms)."""
+    W, ids = accel.real_rows()
+    n = ro.shape[0]
+    excl = excl.to(torch.int32).contiguous()
+    g = ops_intersect.ray_features(ro, rd).contiguous()
+    c = ops_intersect.culled_call(accel, slice(None), ro, rd, excl)
+    args = (c.g, c.W, c.tri_ids, c.excl, c.bound, c.order, c.te)
+    hk = intersect_cuda.nearest_hit_culled(*args, rows=c.rows)
+    hp = intersect_cuda.nearest_hit_culled_plain(*args, rows=c.rows)
+    h1 = intersect_cuda.nearest_hit(g, W, ids, excl)
+    torch.cuda.synchronize()
+    n_diff, err = _compare_hits(hk, hp)
+    n_k1, err_k1 = _compare_hits(
+        ops_intersect.Hit(*(x[:n] for x in (hk.t, hk.tri_id, hk.u, hk.v, hk.valid))), h1)
+    ms = time_ms(lambda: intersect_cuda.nearest_hit_culled(*args, rows=c.rows))
+    k1ms = time_ms(lambda: intersect_cuda.nearest_hit(g, W, ids, excl))
+    best_t = torch.where(hp.valid, hp.t, c.bound)
+    pairs = nearest_culled_pairs(c, best_t, n)
+    bms, by = bound(pairs * OPS["pair"], nbytes(*args) + c.g.shape[0] * 16)
+    b1, _ = bound(n * W.shape[0] * OPS["pair"], nbytes(g, W, ids, excl) + n * 16)
+    log(f"[auto cull] K4 on loop iteration {AUTO_BATCH_ITER}'s sorted extension batch: {n} rays "
+        f"({int(hp.valid[:n].sum())} hit), {float((c.te < 1.5e38).float().mean()):.3f} of tile "
+        f"pairs not culled; ids differ from plain on {n_diff} (bound 0.1%), max err {err:.3g}; "
+        f"from K1 on {n_k1} (bound 0.1%), max err {err_k1:.3g}")
+    log(f"[auto cull] K4 {ms:.3f} ms, K1 on the same rays {k1ms:.3f} ms; {pairs} pairs needed "
+        f"({pairs / (n * W.shape[0]):.3f} of all), bound {bms:.4f} ms ({by}), share "
+        f"{bms / ms:.3f}; K1's bound {b1:.4f} ms, share {b1 / k1ms:.3f}")
+    assert n_diff <= c.g.shape[0] // 1000, "K4 disagrees with its plain version on a loop batch"
+    assert n_k1 <= n // 1000, "K4 disagrees with K1 on a loop batch"
+
+    # Why the schedule culls what it does: each ray tile's origin extent
+    # (largest axis, as a share of the scene's) and the axes on which its
+    # directions straddle zero (no constraint there). Then K4 on the same
+    # rays in origin-major order (the Morton code above the direction
+    # bits), a key the port does not use: what compact origins would cull.
+    lo, inv = regen.scene_bounds(accel)
+    live = torch.ones(n, dtype=torch.bool, device=ro.device)
+    key = regen.lane_sort_key(ro, rd, live, lo, inv)
+    perm = torch.argsort(((key & 0x7FFF) << 9) | (key >> 15), stable=True)
+    for tag, p in (("JAX's key (direction-major)", None), ("origin-major", perm)):
+        o, d = (ro, rd) if p is None else (ro[p], rd[p])
+        ot, dt = (x.view(-1, intersect_cuda.RAY_TILE, 3) for x in (o, d))
+        ext = ((ot.amax(dim=1) - ot.amin(dim=1)) * inv).amax(dim=1)
+        straddle = ((dt.amin(dim=1) <= 0.0) & (dt.amax(dim=1) >= 0.0)).sum(dim=1).float()
+        c2 = ops_intersect.culled_call(accel, slice(None), o, d, excl if p is None else excl[p])
+        a2 = (c2.g, c2.W, c2.tri_ids, c2.excl, c2.bound, c2.order, c2.te)
+        ms2 = time_ms(lambda: intersect_cuda.nearest_hit_culled(*a2, rows=c2.rows))
+        log(f"[auto cull] loop batch in {tag} order: ray tiles' origin extent median "
+            f"{float(ext.median()):.3f} of the scene's, {float(straddle.mean()):.2f} direction "
+            f"axes straddling zero a tile; {float((c2.te < 1.5e38).float().mean()):.3f} of tile "
+            f"pairs not culled; K4 {ms2:.3f} ms")
+    return ms, k1ms, bms, b1
+
+
+def _loop_batch_k5(accel, ro, rd, t_max, excl):
+    """K5 on a recorded loop shadow batch against its plain version and K2
+    (``_check_k5``); (K5 ms, K2 ms, K5 bound ms, K2 bound ms)."""
+    W, ids = accel.real_rows()
+    n = ro.shape[0]
+    excl = excl.to(torch.int32).contiguous()
+    scaled = (t_max * (1.0 - ops_intersect.OCCLUSION_MARGIN)).to(torch.float32).contiguous()
+    _, _, _, args, rows = _check_k5(accel, ro, rd, excl, scaled, "loop batch")
+    gs = ops_intersect.ray_features(ro, rd).contiguous()
+    ms = time_ms(lambda: intersect_cuda.occluded_culled(*args, rows=rows))
+    k2ms = time_ms(lambda: intersect_cuda.occluded(gs, W, ids, excl, scaled))
+    pairs = anyhit_pairs(*args[:5], order=args[5], te=args[6])
+    bms, by = bound(pairs * OPS["anyhit_pair"], nbytes(*args) + args[0].shape[0] * 4)
+    pairs2 = anyhit_pairs(gs, W, ids, excl, scaled)
+    b2, _ = bound(pairs2 * OPS["anyhit_pair"], nbytes(gs, W, ids, excl, scaled) + n * 4)
+    log(f"[auto cull] K5 {ms:.3f} ms, K2 on the same rays {k2ms:.3f} ms; {pairs} pairs needed on "
+        f"K5's schedule ({pairs / (n * W.shape[0]):.3f} of all), bound {bms:.4f} ms ({by}), "
+        f"share {bms / ms:.3f}; K2 needs {pairs2} pairs, bound {b2:.4f} ms, share {b2 / k2ms:.3f}")
+    return ms, k2ms, bms, b2
+
+
+def phase_auto_cull():
+    """Bathroom with accel="auto" (sorted lanes, K4 / K5 in the loop)
+    against accel="all_pairs" (K1 / K2 in the loop); K4 / K5 timed on one
+    recorded sorted loop batch beside K1 / K2."""
+    sc = load_scene(BATHROOM)
+    cam = sc.camera
+    n_pix = cam.width * cam.height
+    cfg = RenderConfig(width=cam.width, height=cam.height, spp=AUTO_SPP, estimator="mis",
+                       light_sampler="spherical_triangle", max_depth=16, seed=0)
+    assert ops_intersect.auto_policy(sc.num_tris)["cull"], "bathroom outside the cull window"
+    # Prepass chunks of one launch (integrator/regen.primary_prepass): each
+    # traces its camera fan once through K4 (in the warm-up too) and its
+    # shadow rays once through K5.
+    spp_cap = max(1, min(AUTO_SPP, (16 << 20) // n_pix))
+    n_chunks = -(-n_pix // min(1 << 15, n_pix, max(4096, (1 << 18) // spp_cap)))
+    out, seconds = {}, {"auto": [], "all_pairs": []}
+    for accel in ("auto", "all_pairs", "all_pairs", "auto"):     # in turns: host time spreads
+        reset_counters()
+        res, iters, sort_s, batch = record_loop(
+            lambda: render_image_regen(sc, cfg.replace(accel=accel), lanes=LANES_CACHED))
+        launches = counters()
+        img = res.image
+        assert img.shape == (cam.height, cam.width, 3) and np.isfinite(img).all(), "bad image"
+        checksum = float((img.astype(np.float64) * AUTO_SPP).sum())
+        log(f"[auto cull] bathroom {cam.width}x{cam.height} x {AUTO_SPP} spp, accel={accel}: "
+            f"{res.seconds:.2f} s, {iters} loop iterations ({res.seconds / iters * 1e3:.1f} ms "
+            f"each, prepass included), {res.rays_traced} rays, "
+            f"{res.rays_traced / res.seconds / 1e6:.3f} Mrays/s, fb_checksum {checksum:.1f}; "
+            f"lane sort {sort_s:.3f} s on the host ({sort_s / res.seconds:.1%} of the render, "
+            f"{sort_s / max(iters, 1) * 1e3:.2f} ms an iteration); launches {launches}")
+        seconds[accel].append(res.seconds)
+        out.setdefault(accel, dict(res=res, iters=iters, checksum=checksum, launches=launches,
+                                   batch=batch, sort_s=sort_s))
+        assert res.rays_traced == out[accel]["res"].rays_traced, "a repeat traced other rays"
+    auto, ap = out["auto"], out["all_pairs"]
+    la = auto["launches"]
+    assert la["K1 nearest_hit"] == la["K2 occluded"] == 0, f"K1 / K2 ran with auto: {la}"
+    assert la["K4 nearest_hit_culled"] >= 2 * n_chunks + auto["iters"], \
+        f"K4 did not run in the loop: {la}, {n_chunks} prepass chunks"
+    assert la["K5 occluded_culled"] >= n_chunks + auto["iters"], \
+        f"K5 did not run in the loop: {la}"
+    lp = ap["launches"]
+    assert lp["K1 nearest_hit"] >= ap["iters"] and lp["K2 occluded"] >= ap["iters"], \
+        f"K1 / K2 did not run in the all-pairs loop: {lp}"
+    gap = auto["checksum"] / ap["checksum"] - 1.0
+    log(f"[auto cull] auto against all-pairs: rays {auto['res'].rays_traced} vs "
+        f"{ap['res'].rays_traced} (must be equal), checksum gap {gap:+.3e} (bound "
+        f"{AUTO_CHECKSUM_GAP:g}); seconds in turns auto {seconds['auto']} vs all-pairs "
+        f"{seconds['all_pairs']}")
+    assert auto["res"].rays_traced == ap["res"].rays_traced, "sorting changed the ray count"
+    assert abs(gap) <= AUTO_CHECKSUM_GAP, "auto and all-pairs checksums disagree"
+
+    accel = ops_intersect.build_accel(sc)
+    k4 = _loop_batch_k4(accel, *auto["batch"]["ext"])
+    k5 = _loop_batch_k5(accel, *auto["batch"]["shadow"])
+    return {
+        "seconds": seconds, "iters": auto["iters"], "sort_s": auto["sort_s"],
+        "K4 nearest_hit_culled": dict(launches_auto=la["K4 nearest_hit_culled"], loop_ms=k4[0],
+                                      loop_k1_ms=k4[1], loop_bound_ms=k4[2],
+                                      loop_k1_bound_ms=k4[3]),
+        "K5 occluded_culled": dict(launches_auto=la["K5 occluded_culled"], loop_ms=k5[0],
+                                   loop_k2_ms=k5[1], loop_bound_ms=k5[2], loop_k2_bound_ms=k5[3]),
+    }
+
+
+def run_cli(*args, timeout: float = 900.0):
+    """``python -m monte_carlo_path_tracing_tpu_torch.cli`` with ``args`` on
+    the card: (its last-line JSON, stdout, stderr, wall seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "monte_carlo_path_tracing_tpu_torch.cli", *args],
+                       cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"cli {' '.join(args[:2])} exited {r.returncode}:\n{r.stderr[-4000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1]), r.stdout, r.stderr, wall
+
+
+def cli_in_process(*args):
+    """``cli.main(args)`` in this process, its output kept off stdout: (its
+    last-line JSON, stdout, host seconds, kernel launches)."""
+    buf = io.StringIO()
+    reset_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(args))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    assert rc == 0, f"cli {' '.join(args[:2])} returned {rc}"
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), buf.getvalue(), seconds, launches
+
+
+def phase_cli():
+    """The CLI's --regen Veach render as a subprocess against the same
+    command in-process; its fixed-depth render checkpointed and resumed as
+    subprocesses against the uninterrupted command in-process. The
+    in-process runs read the kernels' launches."""
+    os.makedirs(WORK, exist_ok=True)
+    out, ref_out = os.path.join(WORK, "v.npy"), os.path.join(WORK, "v_in_process.npy")
+    argv = ("render", VEACH, "--regen", "--spp", str(CLI_SPP), "--max-depth", "16", "--lanes",
+            str(LANES_CACHED))
+    stats, _, _, wall = run_cli(*argv, "--out", out)
+    ref, _, ref_wall, launches = cli_in_process(*argv, "--out", ref_out)
+    a, b = np.load(out), np.load(ref_out)
+    n_off = int((~np.isclose(a, b, rtol=CLI_RTOL, atol=CLI_ATOL)).sum())
+    rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), CLI_ATOL)))
+    log(f"[cli] render --regen veach {a.shape[1]}x{a.shape[0]} x {CLI_SPP} spp, depth 16: "
+        f"subprocess {wall:.1f} s wall, the CLI's seconds {stats['seconds']:.2f}; in-process "
+        f"{ref_wall:.1f} s wall, {ref['seconds']:.2f} s; {n_off} values beyond rtol "
+        f"{CLI_RTOL:g} / atol {CLI_ATOL:g}, max relative gap {rel:.3e}; mean radiance "
+        f"{stats['mean_radiance']:.6f}; launches in-process {launches}")
+    assert a.shape == b.shape and np.isfinite(a).all(), "bad CLI image"
+    assert all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}"
+    assert n_off == 0, "the CLI's regen render differs from the in-process one"
+
+    ck = os.path.join(WORK, "ck.npz")
+    if os.path.exists(ck):
+        os.remove(ck)
+    s2, _, _, wall2 = run_cli("render", VEACH, "--spp", str(CLI_FD_SPP), "--checkpoint", ck,
+                              "--checkpoint-every", "1")
+    fd, ref_fd = os.path.join(WORK, "fd.npy"), os.path.join(WORK, "fd_in_process.npy")
+    s3, stdout, _, wall3 = run_cli("render", VEACH, "--spp", str(CLI_FD_SPP + 1), "--checkpoint",
+                                   ck, "--resume", "--out", fd)
+    assert "resuming" in stdout, "the CLI did not resume from its checkpoint"
+    ref, _, ref_wall, launches = cli_in_process("render", VEACH, "--spp", str(CLI_FD_SPP + 1),
+                                                "--out", ref_fd)
+    a, b = np.load(fd), np.load(ref_fd)
+    n_off = int((~np.isclose(a, b, rtol=1e-5, atol=1e-6)).sum())
+    log(f"[cli] render (fixed depth 32) veach {a.shape[1]}x{a.shape[0]}: {CLI_FD_SPP} spp "
+        f"checkpointed every spp {wall2:.1f} s wall (the CLI's seconds {s2['seconds']:.2f}), "
+        f"resumed to {CLI_FD_SPP + 1} spp {wall3:.1f} s wall ({s3['seconds']:.2f}); "
+        f"uninterrupted {CLI_FD_SPP + 1} spp in-process {ref_wall:.1f} s wall "
+        f"({ref['seconds']:.2f}); {n_off} values beyond rtol 1e-5 / atol 1e-6; launches "
+        f"in-process {launches}")
+    assert all(launches[k] > 0 for k in list(KERNELS)[:3]), f"K1-K3 did not launch: {launches}"
+    assert all(launches[k] == 0 for k in list(KERNELS)[3:]), f"a culled kernel ran: {launches}"
+    assert np.isfinite(a).all() and n_off == 0, "the resumed image differs from the uninterrupted one"
+
+
+def _timed_inverse_step(sc, cfg, lm, i):
+    """One step of the inverse loop in-process: (forward s, backward s,
+    peak bytes above the scene)."""
+    n_pix = sc.camera.width * sc.camera.height
+    k_step, idx = inverse.step_keys(0, i, INV_RAYS, n_pix, sc.device)
+    ro, rd = generate_rays(sc.camera, idx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss = inverse.two_stream_loss(sc, lm, cfg, k_step, ro, rd)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    for p in dgrad.latent_leaves(lm):
+        p.grad = None
+    return t1 - t0, t2 - t1, torch.cuda.max_memory_allocated() - base
+
+
+def phase_inverse():
+    """The CLI's inverse demo on cornell 256^2; one step timed in-process;
+    recover_materials for 3 steps on the card against the CPU."""
+    fams = inverse.FAMILIES
+    stats, _, stderr, wall = run_cli("inverse", CORNELL, "--max-depth", "3", "--rays-per-step",
+                                     str(INV_RAYS), "--steps", str(INV_STEPS), "--lr", "0.06",
+                                     "--optimize", ",".join(fams))
+    losses = [float(line.split()[-1]) for line in stderr.splitlines() if line.startswith("step ")]
+    sc = load_scene(CORNELL)
+    start = dgrad.from_latent(dgrad.to_latent(cli.perturb_materials(sc.materials, 0.2, fams)))
+    kd0 = cli.material_errors(start, sc.materials)["kd_mae"]
+    log(f"[inverse] cli inverse cornell 256^2, depth 3, {INV_RAYS} rays x {INV_STEPS} steps: "
+        f"{wall:.1f} s wall; losses at steps 0, 10, 20: {losses}; {json.dumps(stats)}; kd_mae "
+        f"at the perturbed start {kd0:.5f}")
+    assert len(losses) == -(-INV_STEPS // 10) and all(np.isfinite(losses + [stats["final_loss"]]))
+    assert stats["kd_mae"] < kd0, "the CLI's inverse demo did not lower kd_mae"
+
+    cfg = RenderConfig(width=sc.camera.width, height=sc.camera.height, max_depth=3)
+    lm = dgrad.LatentMaterials(*(x.clone().requires_grad_(True)
+                                 for x in dgrad.latent_leaves(dgrad.to_latent(start))))
+    steps = [_timed_inverse_step(sc, cfg, lm, i) for i in range(4)][1:]     # first: warm-up
+    fwd, bwd = (statistics.median(x) * 1e3 for x in list(zip(*steps))[:2])
+    peak = max(s[2] for s in steps)
+    log(f"[inverse] one step in-process ({INV_RAYS} rays, three depth-3 renders, two under "
+        f"autograd): forward {fwd:.1f} ms, backward {bwd:.1f} ms, {fwd + bwd:.1f} ms a step "
+        f"(median of 3 after a warm-up); peak memory above the scene {peak / 2**20:.1f} MiB")
+
+    small = with_res(load_scene(CORNELL, device="cpu"), INV_RES, INV_RES)
+    init = cli.perturb_materials(small.materials, 0.2, fams)
+    cfg = RenderConfig(width=INV_RES, height=INV_RES, max_depth=3)
+    kw = dict(steps=3, lr=0.06, rays_per_step=INV_RES * INV_RES // 2, seed=1)
+    reset_counters()
+    t0 = time.perf_counter()
+    card = inverse.recover_materials(small.to("cuda"), init, cfg, **kw)
+    t1 = time.perf_counter()
+    launches = counters()
+    cpu = inverse.recover_materials(small, init, cfg, **kw)
+    t2 = time.perf_counter()
+    loss_gap = max(abs(a / b - 1.0) for a, b in zip(card.losses, cpu.losses))
+    lat_gap = max(float((x.cpu() - y).abs().max()) for x, y in zip(
+        dgrad.latent_leaves(dgrad.to_latent(card.materials)),
+        dgrad.latent_leaves(dgrad.to_latent(cpu.materials))))
+    log(f"[inverse] recover_materials cornell {INV_RES}^2, 3 steps: card {t1 - t0:.2f} s, cpu "
+        f"{t2 - t1:.2f} s; losses {card.losses} vs {cpu.losses}, largest relative gap "
+        f"{loss_gap:.3e} (bound {INV_LOSS_RTOL:g}); latents max abs gap {lat_gap:.3e} (bound "
+        f"{INV_LATENT_ATOL:g}); launches on the card {launches}")
+    assert all(launches[k] > 0 for k in list(KERNELS)[:3]), f"K1-K3 did not launch: {launches}"
+    assert loss_gap <= INV_LOSS_RTOL and lat_gap <= INV_LATENT_ATOL, "card and CPU disagree"
+
+
 def main():
     name, smi = phase_device()
     phase_build()
@@ -805,9 +1190,13 @@ def main():
     phase_two_devices(scene_cpu)
     fixed = phase_fixed_depth(scene, kernels)
     phase_gradient(scene_cpu)
+    auto = phase_auto_cull()
+    phase_cli()
+    phase_inverse()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_fixed_depth"] = fixed[k["name"]]
+        k.update(auto.get(k["name"], {}))
     kernels.sort(key=lambda k: k["name"])
     print(json.dumps({"kernels": kernels}))
     print(smi)

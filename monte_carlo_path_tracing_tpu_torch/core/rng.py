@@ -16,7 +16,12 @@ with ``& 0xFFFFFFFF`` masks. What is reproduced (jax 0.9, with
 - ``random_bits(key, 32, shape)``: counts are the 64-bit iota over
   ``shape`` split into (hi, lo) words; bits = ``out0 ^ out1``;
 - ``uniform``: ``bitcast((bits >> 9) | 0x3F800000) - 1``, then
-  ``max(minval, f * (maxval - minval) + minval)``.
+  ``max(minval, f * (maxval - minval) + minval)``;
+- ``split(key, n)``: ``threefry2x32(key, (0, i))`` for i < n, the same
+  words as ``fold_in(key, i)``;
+- ``randint``: two 32-bit draws from the two halves of ``split(key)``,
+  combined modulo the span with jax's ``2**32 mod span`` multiplier (the
+  uint32 products wrap; here int64 with masks).
 """
 
 from __future__ import annotations
@@ -89,6 +94,11 @@ def sample_key(key: torch.Tensor, sample_id) -> torch.Tensor:
     return fold_in(key, sample_id)
 
 
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` of one [2] key: [num, 2] keys."""
+    return fold_in(key, torch.arange(num, dtype=torch.int64, device=key.device))
+
+
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """32-bit random words of ``shape`` per key (jax's partitionable
     ``random_bits``): a scalar key [2] gives ``shape``; a batched key
@@ -118,6 +128,19 @@ def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
     lo = np.float32(minval)
     span = float(np.float32(maxval) - lo)   # jax subtracts in f32
     return torch.clamp(f * span + float(lo), min=float(lo))
+
+
+def randint(key: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """int64 draws in [minval, maxval) of ``shape`` from one [2] key,
+    bit-equal to ``jax.random.randint(key, shape, minval, maxval,
+    dtype=jnp.int32)`` for int32 bounds."""
+    lo, hi = int(minval), int(maxval)
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = (hi - lo) & _M32 if hi > lo else 1
+    multiplier = ((((1 << 16) % span) ** 2) & _M32) % span   # uint32: 2**32 wraps to 0
+    offset = ((((higher % span) * multiplier) & _M32) + lower % span) & _M32
+    return lo + offset % span
 
 
 def pick_from_uniform(

@@ -5,9 +5,10 @@ Counterpart of ``monte_carlo_path_tracing_tpu/diff/grad.py`` on
 end to end: gradients flow through BRDF values (Kd, Ks, Ns), emission,
 cosines and MIS weights, while discrete events and sampling pdfs are
 detached — the detached-sampling estimator. This module packages the
-loss / gradient entry points and the reparameterisation that keeps an
-optimisation inside the feasible set. The optimiser loop
-(``diff/inverse.py``) is not ported yet.
+loss / gradient entry points, the reparameterisation that keeps an
+optimisation inside the feasible set, and one optimiser step over the
+latents (``make_latent_step``: the optax step of the JAX package as a
+``torch.optim`` step); ``diff/inverse.py`` runs the optimisation.
 """
 
 from __future__ import annotations
@@ -93,3 +94,38 @@ def to_latent(m: Materials) -> LatentMaterials:
 def from_latent(lm: LatentMaterials) -> Materials:
     return Materials(kd=torch.sigmoid(lm.kd_l), ks=torch.sigmoid(lm.ks_l),
                      ns=torch.exp(lm.ns_l), emission=torch.exp(lm.emission_l))
+
+
+def latent_leaves(lm: LatentMaterials) -> list:
+    """The latent tensors in field order: what an optimiser over ``lm``
+    holds as its parameters."""
+    return [getattr(lm, f.name) for f in dataclasses.fields(lm)]
+
+
+def latent_loss(lm: LatentMaterials, scene, cfg, key, ro, rd, target) -> torch.Tensor:
+    return render_loss(from_latent(lm), scene, cfg, key, ro, rd, target)
+
+
+def latent_loss_and_grad(lm: LatentMaterials, scene, cfg, key, ro, rd, target):
+    """(loss, d loss / d latents) as a LatentMaterials of gradients."""
+    m, leaves = _leaves(lm)
+    with torch.enable_grad():
+        loss = latent_loss(m, scene, cfg, key, ro, rd, target)
+        g = _grads(loss, leaves)
+    return loss.detach(), LatentMaterials(**g)
+
+
+def make_latent_step(scene: Scene, cfg: RenderConfig, optimizer: torch.optim.Optimizer):
+    """One optimiser step over latent materials. ``optimizer`` holds the
+    tensors of ``latent_leaves(lm)`` as its parameters; ``step(lm, key, ro,
+    rd, target)`` updates them in place and returns the loss before the
+    update."""
+
+    def step(lm: LatentMaterials, key, ro, rd, target) -> torch.Tensor:
+        loss, g = latent_loss_and_grad(lm, scene, cfg, key, ro, rd, target)
+        for p, gi in zip(latent_leaves(lm), latent_leaves(g)):
+            p.grad = gi
+        optimizer.step()
+        return loss
+
+    return step

@@ -14,7 +14,11 @@ and launch splitting, and consumes the same streams as the JAX package.
   and no lane is alive. Per bounce it runs K1 (extension rays), K3 (Arvo
   light pick) and K2 (shadow rays) when the scene's tensors are on CUDA,
   their plain versions on the CPU. Lanes restart as camera rays, or, with
-  ``seed_mode``, resume at depth 1 from the pre-pass's seeds.
+  ``seed_mode``, resume at depth 1 from the pre-pass's seeds. With
+  ``accel="auto"`` on scenes of ``AUTO_CULL_MIN_TRIS`` triangles or more
+  (or ``ray_sort=True``) the lanes are sorted each iteration by
+  (direction, origin Morton code), and with auto the loop's traces cull:
+  K4 / K5 instead of K1 / K2.
 - :func:`primary_prepass`: with jitter off every spp of a pixel re-traces
   one camera ray, so the pre-pass traces each pixel once (K4, culled),
   prepares its Arvo CDF once, and runs the depth-0 shading densely for all
@@ -93,14 +97,63 @@ def _check_supported(cfg: RenderConfig) -> None:
     todo = [
         (cfg.mis_blocker_compat, "mis_blocker_compat / blocker-chain queue"),
         (cfg.ref_mis_weights, "ref_mis_weights light-accel MIS"),
-        (cfg.ray_sort, "ray_sort lane sorting"),
         (cfg.accel == "grid", "accel='grid'"),
     ]
     for bad, what in todo:
         if bad:
             raise NotImplementedError(f"not ported yet: {what} ({COMPAT_ITEM})")
+    if cfg.ray_sort_every > 1:
+        raise NotImplementedError(
+            'ray_sort_every > 1 is not ported (ROADMAP queue 1, "Do not port"): '
+            "the lanes are sorted every iteration")
     if cfg.estimator not in (EST_MIS, EST_BRDF, EST_SPLIT):
         raise ValueError(f"render_regen does not run estimator {cfg.estimator!r}")
+
+
+#: Per-lane tensors of the loop state: what the lane sort permutes (JAX
+#: ``_LANE_ARRAYS``).
+LANE_ARRAYS = ("alive", "pixel", "sample", "depth", "ro", "rd", "excl", "tp", "L",
+               "prev_pb", "prev_p", "prev_ns", "prev_w")
+
+
+def _spread5(x: torch.Tensor) -> torch.Tensor:  # 5 bits -> every 3rd bit of 15
+    x = (x | (x << 8)) & 0x0100F
+    x = (x | (x << 4)) & 0x010C3
+    x = (x | (x << 2)) & 0x09249
+    return x
+
+
+def scene_bounds(accel) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo [3], 1 / extent [3]) of the accel's finite triangle AABBs (the
+    padding rows' +-inf sentinels masked out): the frame of the lane sort's
+    origin key."""
+    inf = float("inf")
+    lo = torch.where(torch.isfinite(accel.aabb_lo), accel.aabb_lo, inf).amin(dim=0)
+    hi = torch.where(torch.isfinite(accel.aabb_hi), accel.aabb_hi, -inf).amax(dim=0)
+    return lo, 1.0 / torch.clamp(hi - lo, min=1e-20)
+
+
+def lane_sort_key(ro, rd, alive, scene_lo, scene_inv) -> torch.Tensor:
+    """[C] int32 sort key of each lane (JAX ``sort_lanes``): 3 bits a
+    direction axis above a 15-bit Morton code of the origin over the scene's
+    bounds; dead lanes (1 << 24) - 1, so they sort to the back. Values are
+    clamped in f32 before the integer conversion, which for in-range values
+    truncates as XLA's does and keeps out-of-range origins defined."""
+    q = torch.clamp((ro - scene_lo) * scene_inv * 31.0, 0.0, 31.0).to(torch.int32)
+    morton = _spread5(q[:, 0]) | (_spread5(q[:, 1]) << 1) | (_spread5(q[:, 2]) << 2)
+    dq = torch.clamp((rd * 0.5 + 0.5) * 7.0, 0.0, 7.0).to(torch.int32)
+    dkey = (dq[:, 0] << 6) | (dq[:, 1] << 3) | dq[:, 2]
+    return torch.where(alive, (dkey << 15) | morton, (1 << 24) - 1)
+
+
+def sort_lanes(st: dict, scene_lo, scene_inv) -> dict:
+    """The loop state with its lanes stably sorted by :func:`lane_sort_key`,
+    so that each ray tile of the culled kernels is coherent in origin and
+    direction. A pure permutation: every draw is keyed by the lane's
+    (sample, pixel, depth), so values and ray counts do not change."""
+    order = torch.argsort(lane_sort_key(st["ro"], st["rd"], st["alive"], scene_lo, scene_inv),
+                          stable=True)
+    return {k: v[order] if k in LANE_ARRAYS else v for k, v in st.items()}
 
 
 def primary_prepass(
@@ -325,6 +378,14 @@ def render_regen(
     consts = arvo_cuda.pack_consts(scene)
     table = light_spherical.light_table(scene)
     est = cfg.estimator
+    # accel="auto": in-loop culling and the lane sort from the triangle
+    # count (JAX regen.py:717-722); an explicit ray_sort sorts either way.
+    loop_cull, do_sort = False, cfg.ray_sort
+    if cfg.accel == "auto":
+        policy = ops_intersect.auto_policy(scene.num_tris)
+        loop_cull, do_sort = policy["cull"], do_sort or policy["ray_sort"]
+    if do_sort:
+        scene_lo, scene_inv = scene_bounds(accel)
     cam = scene.camera
     u_ax, v_ax, n_ax, dist = camera_basis(cam)
     plen = pixel_len(cam, dist)
@@ -387,12 +448,14 @@ def render_regen(
 
     while bool((counter < total_samples) | st["alive"].any()):
         iters += 1
+        if do_sort:
+            st = sort_lanes(st, scene_lo, scene_inv)
         alive, depth, tp, L = st["alive"], st["depth"], st["tp"], st["L"]
         lk_d = rng.fold_in(lane_stream(st["sample"], st["pixel"]), depth)
 
         # ---- one bounce for live lanes (wavefront._run_mis / _run_split /
         #      _run_brdf semantics) ----
-        hit = ops_intersect.intersect(accel, st["ro"], st["rd"], st["excl"])
+        hit = ops_intersect.intersect(accel, st["ro"], st["rd"], st["excl"], cull=loop_cull)
         nrays += alive.sum()
         si = common.gather_interaction(scene, hit, st["rd"], tri_to_light)
         cont = alive & hit.valid & si.front
@@ -432,7 +495,7 @@ def render_regen(
             nrays += cont.sum()
             if est == EST_MIS:
                 wsum = zero if ws is None else ws
-                L = L + tp * _nee_term(scene, cfg, accel, si, ls, wsum, cont)
+                L = L + tp * _nee_term(scene, cfg, accel, si, ls, wsum, cont, cull=loop_cull)
             else:
                 L = L + tp * _direct_term(scene, cfg, accel, si, ls, cont)
         if est != EST_MIS:

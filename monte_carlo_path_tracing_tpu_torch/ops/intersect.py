@@ -8,11 +8,11 @@ multiple of ``TRI_BLOCK``, with per-triangle AABBs in the same order.
 the all-pairs kernels K1 / K2 on the real rows by default, the culled
 kernels K4 / K5 on the padded arrays with
 ``cull=True`` (coherent batches: camera fans and the primary pre-pass's
-shadow batches) — kernels for CUDA tensors, their plain torch versions for
-CPU tensors.
+shadow batches, and the regeneration loop's sorted lanes where
+:func:`auto_policy` turns culling on) — kernels for CUDA tensors, their
+plain torch versions for CPU tensors.
 
-Not ported yet (ROADMAP queue 1, "Compat and accel extras"):
-``auto_policy`` with in-loop culling (it comes with ``ray_sort``), the
+Not ported yet (ROADMAP queue 1, "Compat and accel extras"): the
 lights-only accel and the uniform grid.
 """
 
@@ -36,10 +36,27 @@ TRI_BLOCK = 512
 #: below t_max * (1 - margin), keeping the sampled light surface itself out.
 OCCLUSION_MARGIN = 1e-3
 
+#: accel="auto" threshold: scenes of at least this many triangles run the
+#: regeneration loop with in-loop culling and the lane sort. The JAX
+#: package's value (``monte_carlo_path_tracing_tpu/ops/intersect.py``
+#: ``AUTO_CULL_MIN_TRIS``), kept so that both packages pick the same
+#: configuration for a scene; whether it is the card's crossover is
+#: measured by ``chip_smoke.py`` on bathroom (PERF.md).
+AUTO_CULL_MIN_TRIS = 24_000
+
 #: Most triangles per culled kernel call; above it the triangle set is cut
 #: into Morton-contiguous chunks whose results are composed here (JAX:
 #: whole-W residency in VMEM; here it bounds one call's schedule).
 CULL_CHUNK_TRIS = 32_768
+
+
+def auto_policy(num_tris: int) -> dict:
+    """accel='auto' dispatch for a scene of ``num_tris`` triangles (JAX
+    ``auto_policy``): in-loop culling and the lane sort that makes the
+    loop's ray tiles coherent go together; coherent one-off batches (camera
+    fans, pre-pass shadow batches) always cull."""
+    cull = num_tris >= AUTO_CULL_MIN_TRIS
+    return {"cull": cull, "ray_sort": cull, "cull_coherent": True}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels K1-K5 against their plain torch versions (K4 / K5
 also against K1 / K2), and the port's renders on the card against the same
-renders on the CPU: the regeneration render uncached and cached, the
-fixed-depth render_image, and pixel_grad.
+renders on the CPU: the regeneration render uncached and cached, bathroom
+with accel="auto" (K4 / K5 in the loop), the fixed-depth render_image,
+pixel_grad and recover_materials.
 
 Needs an NVIDIA GPU: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where only PyTorch is installed:
@@ -20,7 +21,9 @@ from monte_carlo_path_tracing_tpu_torch.ops import _build, arvo_cuda, intersect_
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.ops import intersect_ref
 from monte_carlo_path_tracing_tpu_torch.core import rng
+from monte_carlo_path_tracing_tpu_torch.diff import grad as dgrad
 from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
+from monte_carlo_path_tracing_tpu_torch.diff.inverse import recover_materials
 from monte_carlo_path_tracing_tpu_torch.render.camera import generate_rays
 from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image, render_image_regen
 from monte_carlo_path_tracing_tpu_torch.scene import load_scene
@@ -637,3 +640,44 @@ def test_pixel_grad_card_matches_cpu(dev):
             assert float(b.norm()) == 0.0, f
             continue
         assert float(a @ b / (a.norm() * b.norm())) >= 0.999, f
+
+
+def test_bathroom_auto_card_matches_cpu(dev):
+    """Bathroom (29,596 triangles) at 64^2 with the default accel="auto":
+    on the card the loop's traces run through K4 / K5 (launches beyond the
+    prepass's three: the warm-up's and the render's camera fans and one
+    shadow batch), never K1 / K2; the CPU runs the plain culled versions.
+    Ray counts to 0.1%, at most 1% of pixels diverged beyond rtol 1e-2 /
+    atol 1e-3."""
+    sc = _scene("bathroom", 64)
+    cfg = RenderConfig(width=64, height=64, spp=1, estimator="mis", seed=3, max_depth=3)
+    kernels = [intersect_cuda.nearest_hit, intersect_cuda.occluded,
+               intersect_cuda.nearest_hit_culled, intersect_cuda.occluded_culled]
+    a = render_image_regen(sc, cfg, lanes=4096)
+    counts = [k.launches for k in kernels]
+    b = render_image_regen(sc.to(dev), cfg, lanes=4096)
+    k1, k2, k4, k5 = (k.launches - n for k, n in zip(kernels, counts))
+    assert k1 == k2 == 0 and k4 > 2 and k5 > 1, (k1, k2, k4, k5)
+    assert abs(a.rays_traced - b.rays_traced) <= a.rays_traced // 1000
+    diverged = ~np.isclose(b.image, a.image, rtol=1e-2, atol=1e-3).all(-1)
+    assert int(diverged.sum()) <= max(2, diverged.size // 100)
+
+
+def test_recover_materials_card_matches_cpu(dev):
+    """Three steps of recover_materials (cornell 16^2, MIS, depth 3, 128
+    rays a step) on the card, through K1-K3, against the CPU: the same
+    streams, so losses to rtol 1e-3 and latents to atol 1e-4 (the kernels'
+    fused dots and the transcendentals differ by ulps)."""
+    sc = _scene("cornell", 16)
+    cfg = RenderConfig(width=16, height=16, spp=1, estimator="mis", max_depth=3, seed=0)
+    init = dataclasses.replace(sc.materials, kd=torch.clamp(sc.materials.kd + 0.2, 0.02, 0.95))
+    kw = dict(steps=3, lr=0.1, rays_per_step=128, seed=2)
+    a = recover_materials(sc, init, cfg, **kw)
+    kernels = [intersect_cuda.nearest_hit, intersect_cuda.occluded, arvo_cuda.arvo_select]
+    counts = [k.launches for k in kernels]
+    b = recover_materials(sc.to(dev), init, cfg, **kw)
+    assert all(k.launches > n for k, n in zip(kernels, counts))
+    np.testing.assert_allclose(b.losses, a.losses, rtol=1e-3)
+    for x, y in zip(dgrad.latent_leaves(dgrad.to_latent(b.materials)),
+                    dgrad.latent_leaves(dgrad.to_latent(a.materials))):
+        np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=0, atol=1e-4)

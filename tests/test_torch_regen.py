@@ -108,7 +108,7 @@ def test_render_regen_returns_sums_and_uses_plain_versions_on_cpu(cornell_scene)
 
 @pytest.mark.parametrize("change", [
     dict(ref_mis_weights=True), dict(ref_mis_weights=True, mis_blocker_compat=True),
-    dict(ray_sort=True), dict(accel="grid"),
+    dict(ray_sort_every=2), dict(accel="grid"),
 ])
 def test_unported_options_raise(cornell_scene, change):
     """One case per option still unported (ROADMAP queue 1, "Compat and accel

@@ -50,7 +50,7 @@ def scene_arrays(scene) -> dict:
     return out
 
 
-@pytest.mark.parametrize("name", ["cornell", "veach-mis", "veach-mis-golden"])
+@pytest.mark.parametrize("name", ["cornell", "veach-mis", "veach-mis-golden", "bathroom"])
 def test_load_scene_arrays_equal(name):
     path = os.path.join(SCENES, name, "veach-mis.obj" if "veach" in name else f"{name}.obj")
     a = scene_arrays(jax_load_scene(path))
