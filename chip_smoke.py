@@ -64,7 +64,21 @@ exits non-zero without printing a result:
    4,096 rays a step, 30 steps, all four families): finite losses, kd error
    below its start; one step timed in-process (forward, backward, peak
    memory); ``recover_materials`` for 3 steps on cornell 32^2 on the card
-   against the CPU.
+   against the CPU;
+13. sharded (``parallel/`` on torch.distributed): (a) the main path of
+   phase 6 through ``render_regen_sharded`` in 2 gloo ranks that both sit
+   on cuda:0 (subprocesses of this script, started with torchrun's
+   variables: ``python3 chip_smoke.py --rank DIR``), each rank rendering
+   its interleaved half of the pixels, cached (prepass and loop in every
+   rank): the image against phase 6's, the ray count, the checksum
+   against the reference, K1-K5 launched in every rank; (b) NCCL at world
+   size 1 through ``init_distributed_if_needed`` in this process, Veach
+   256^2 x 8 spp cached, against the same render without
+   torch.distributed; (c) ``make_train_step`` in the same 2 ranks on
+   cornell 256^2 (MIS, depth 3, 4,096 rays) over a (2,) tiles and a
+   (1, 2) tiles x spp mesh: 5 steps descend, the materials are
+   bit-identical across the ranks after every step, step 0 agrees with
+   the same step on the CPU, K1-K3 launch in every rank.
 
 The last lines are a JSON object of per-kernel results (time, plain
 version's time, bound — the larger of the operations this run's inputs
@@ -74,7 +88,9 @@ share of the bound, launches on the cached render and, as
 K5 ``k2_ms``, the all-pairs kernel on the same rays, and both ``sep_ms``,
 the separately rounded instance; K4 / K5 also ``launches_auto`` on
 bathroom's auto render and, on its recorded loop batch, ``loop_ms``,
-``loop_k1_ms`` / ``loop_k2_ms`` and ``loop_bound_ms``), the card's
+``loop_k1_ms`` / ``loop_k2_ms`` and ``loop_bound_ms``; every kernel
+``launches_sharded``, its launches in each rank of phase 13's sharded
+render), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
@@ -82,9 +98,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import io
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -101,6 +119,11 @@ from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
 from monte_carlo_path_tracing_tpu_torch.integrator import common, regen, render_rays
 from monte_carlo_path_tracing_tpu_torch.ops import _build, arvo_cuda, intersect_cuda
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
+from monte_carlo_path_tracing_tpu_torch.parallel import make_mesh, make_train_step
+from monte_carlo_path_tracing_tpu_torch.parallel import mesh as pmesh
+from monte_carlo_path_tracing_tpu_torch.parallel.sharded import (
+    make_regen_sharded, render_regen_sharded,
+)
 from monte_carlo_path_tracing_tpu_torch.render.camera import (
     camera_basis, generate_rays, pixel_len, primary_dirs,
 )
@@ -193,6 +216,19 @@ CLI_SPP, CLI_RTOL, CLI_ATOL, CLI_FD_SPP = 8, 2e-4, 1e-5, 2
 #: losses to INV_LOSS_RTOL, latents to INV_LATENT_ATOL, about 3x the first
 #: gaps measured on an H100 (2.8e-7 and 9.5e-7).
 INV_STEPS, INV_RAYS, INV_RES, INV_LOSS_RTOL, INV_LATENT_ATOL = 30, 4096, 32, 1e-6, 3e-6
+#: The sharded phase: SHARD_RANKS gloo ranks on cuda:0; of the main path's
+#: pixels at most SHARD_PIXEL_SHARE beyond rtol 1e-4 / atol 1e-5 against
+#: phase 6's single-process image, and its logical rays within
+#: SHARD_RAYS_GAP (relative) of phase 6's: the same streams, so only the
+#: framebuffer's summation order should move; (b) at SHARD_NCCL_RES^2; (c)
+#: TRAIN_STEPS steps of SGD at TRAIN_LR (from kd + 0.2 on cornell, lane
+#: keys fixed over the steps and a target rendered with them from the true
+#: materials; 1.0 descends there on the CPU), step 0 against the CPU within
+#: rtol TRAIN_CPU_RTOL (materials also atol 1e-6); seconds a rank may take
+#: to join and in all.
+SHARD_RANKS, SHARD_PIXEL_SHARE, SHARD_RAYS_GAP, SHARD_NCCL_RES = 2, 1e-3, 1e-6, 256
+TRAIN_STEPS, TRAIN_LR, TRAIN_CPU_RTOL = 5, 1.0, 1e-4
+RENDEZVOUS_S, RANK_S = 120, 600
 
 
 def log(*a):
@@ -704,7 +740,8 @@ def phase_end_to_end(scene, cached: bool):
     assert all(launches[k] > 0 for k in want), f"a kernel of the path never launched: {launches}"
     assert abs(gap_c) <= bound_c and abs(gap_r) <= bound_r, \
         "render drifted from the reference streams"
-    return launches, dict(seconds=res.seconds, rays=res.rays_traced, checksum=checksum)
+    return launches, dict(seconds=res.seconds, rays=res.rays_traced, checksum=checksum,
+                          image=img)
 
 
 def fixed_depth_cfg() -> RenderConfig:
@@ -1179,22 +1216,254 @@ def phase_inverse():
     assert loss_gap <= INV_LOSS_RTOL and lat_gap <= INV_LATENT_ATOL, "card and CPU disagree"
 
 
+def _materials_to(m, device):
+    return dataclasses.replace(m, **{f.name: getattr(m, f.name).to(device)
+                                     for f in dataclasses.fields(m)})
+
+
+def _rank_regen(out_dir, rank, world):
+    """(a) in one rank: this rank's half of the main path through
+    render_regen_sharded, after a warm-up launch (0 spp rounds, as
+    render_image_regen's), timed from a barrier; rank 0 keeps the image."""
+    sc = with_res(load_scene(VEACH), RES, RES)
+    assert sc.device.type == "cuda", "a rank runs on the card"
+    cfg = main_cfg()
+    mesh = make_mesh((world,), ("tiles",))
+    key = rng.base_key(cfg.seed, device=sc.device)
+    make_regen_sharded(sc, cfg, mesh, LANES_CACHED, spp_cap=SPP)(sc, key, 0)
+    torch.cuda.synchronize()
+    torch.distributed.barrier()
+    reset_counters()
+    t0 = time.perf_counter()
+    fb, rays = render_regen_sharded(sc, cfg, key, mesh, LANES_CACHED, spp_cap=SPP)
+    seconds = time.perf_counter() - t0
+    launches = counters()
+    if rank == 0:
+        np.save(os.path.join(out_dir, "sharded_fb.npy"), fb)
+    return dict(job="regen", seconds=seconds, rays=rays,
+                checksum=float(fb.astype(np.float64).sum()), launches=launches)
+
+
+def _rank_train(world):
+    """(c) in one rank: TRAIN_STEPS steps of make_train_step on cornell over
+    a (world,) tiles mesh and a (1, world) tiles x spp one, each from kd +
+    0.2 against a target rendered from the true materials with the same
+    lane keys (averaged over the spp folds, as the step averages); a digest
+    of the materials after every step; step 0 again on the CPU."""
+    sc = load_scene(CORNELL)
+    assert sc.device.type == "cuda", "a rank runs on the card"
+    cam = sc.camera
+    cfg = RenderConfig(width=cam.width, height=cam.height, max_depth=3)
+    _, idx = inverse.step_keys(0, 0, INV_RAYS, cam.width * cam.height, sc.device)
+    ro, rd = generate_rays(cam, idx)
+    keys = rng.lane_keys(rng.base_key(5, device=sc.device), idx)
+    m0 = cli.perturb_materials(sc.materials, 0.2, ("kd",))
+    fields = [f.name for f in dataclasses.fields(m0)]
+    out = []
+    for shape, names in (((world,), ("tiles",)), ((1, world), ("tiles", "spp"))):
+        mesh = make_mesh(shape, names)
+        folds = [rng.fold_in(keys, s) for s in range(world)] if len(shape) == 2 else [keys]
+        with torch.no_grad():
+            target = sum(render_rays(sc, cfg, k, ro, rd) for k in folds) / len(folds)
+        step = make_train_step(sc, cfg, mesh, lr=TRAIN_LR)
+        reset_counters()
+        t0 = time.perf_counter()
+        m, losses, digests = m0, [], []
+        for i in range(TRAIN_STEPS):
+            m, loss = step(m, keys, ro, rd, target)
+            losses.append(float(loss))
+            digests.append(hashlib.sha256(b"".join(
+                getattr(m, f).cpu().numpy().tobytes() for f in fields)).hexdigest())
+            if i == 0:
+                first = m
+        seconds = time.perf_counter() - t0
+        launches = counters()
+        cpu_step = make_train_step(sc.to("cpu"), cfg, mesh, lr=TRAIN_LR)
+        mc, loss_c = cpu_step(_materials_to(m0, "cpu"), keys.cpu(), ro.cpu(), rd.cpu(),
+                              target.cpu())
+        pairs = [(getattr(first, f).cpu(), getattr(mc, f)) for f in fields]
+        out.append(dict(job="train", mesh=list(shape), seconds=seconds, losses=losses,
+                        digests=digests, launches=launches,
+                        cpu_loss_gap=abs(losses[0] / float(loss_c) - 1.0),
+                        cpu_mat_err=max(float((a - b).abs().max()) for a, b in pairs),
+                        cpu_mat_ok=all(torch.allclose(a, b, rtol=TRAIN_CPU_RTOL, atol=1e-6)
+                                       for a, b in pairs)))
+    return out
+
+
+def rank_main(out_dir):
+    """One rank of phase "sharded", started by :func:`phase_sharded` with
+    torchrun's variables: joins the gloo group, runs (a) and (c) on the
+    card, prints one ``RANK_JSON`` line per job."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke rank: torch.cuda.is_available() is False")
+    pmesh.init_distributed_if_needed("gloo", timeout_s=RENDEZVOUS_S)
+    dist = torch.distributed
+    rank, world = dist.get_rank(), dist.get_world_size()
+    for res in [_rank_regen(out_dir, rank, world)] + _rank_train(world):
+        print("RANK_JSON", json.dumps(dict(res, rank=rank)), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    # Leave without the interpreter's teardown: under load torch's teardown
+    # of the gloo groups now and then aborted a rank whose work was done.
+    os._exit(0)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(world: int, out_dir: str):
+    """``world`` processes of ``python3 chip_smoke.py --rank out_dir`` under
+    torchrun's variables on a free local port; each must exit 0 within
+    RANK_S seconds. Returns (their RANK_JSON records, wall seconds)."""
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+               WORLD_SIZE=str(world))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", out_dir],
+                              cwd=ROOT, env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=RANK_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    recs = [json.loads(line.split(" ", 1)[1]) for out in outs for line in out.splitlines()
+            if line.startswith("RANK_JSON ")]
+    return recs, wall
+
+
+def _phase_sharded_nccl(scene):
+    """(b): init_distributed_if_needed under torchrun's variables for one
+    process (NCCL), render_regen_sharded at SHARD_NCCL_RES^2 against
+    render_image_regen of the same configuration."""
+    dist = torch.distributed
+    sc = with_res(scene, SHARD_NCCL_RES, SHARD_NCCL_RES)
+    cfg = main_cfg().replace(width=SHARD_NCCL_RES, height=SHARD_NCCL_RES)
+    launch = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                  RANK="0", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in launch}
+    os.environ.update(launch)
+    try:
+        pmesh.init_distributed_if_needed(timeout_s=RENDEZVOUS_S)
+        backend = dist.get_backend()
+        reset_counters()
+        t0 = time.perf_counter()
+        fb, rays = render_regen_sharded(sc, cfg, rng.base_key(cfg.seed, device=sc.device),
+                                        make_mesh((1,)), LANES_CACHED, spp_cap=SPP)
+        seconds = time.perf_counter() - t0
+        launches = counters()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    ref = render_image_regen(sc, cfg, lanes=LANES_CACHED)
+    img = fb.reshape(ref.image.shape) / SPP
+    n_off = int((~np.isclose(img, ref.image, rtol=1e-5, atol=1e-6)).sum())
+    log(f"[sharded] (b) {backend} at world size 1: veach {SHARD_NCCL_RES}^2 x {SPP} spp cached "
+        f"{seconds:.2f} s (no warm-up), {rays} rays; without torch.distributed {ref.seconds:.2f} "
+        f"s, {ref.rays_traced} rays; {n_off} values beyond rtol 1e-5 / atol 1e-6; launches "
+        f"{launches}")
+    assert backend == "nccl", f"world size 1 on the card ran {backend}, not NCCL"
+    assert all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}"
+    assert rays == ref.rays_traced and n_off == 0, "the NCCL render differs from the plain one"
+
+
+def phase_sharded(scene, e2e):
+    """(a) and (c) in SHARD_RANKS gloo ranks on cuda:0, then (b) here.
+    Returns each kernel's launches in each rank of (a)."""
+    out_dir = os.path.join(WORK, "sharded")
+    os.makedirs(out_dir, exist_ok=True)
+    recs, wall = launch_ranks(SHARD_RANKS, out_dir)
+    regen_recs = sorted((r for r in recs if r["job"] == "regen"), key=lambda r: r["rank"])
+    assert len(regen_recs) == SHARD_RANKS, f"ranks reported {len(regen_recs)} renders"
+    fb = np.load(os.path.join(out_dir, "sharded_fb.npy"))
+    img = fb.reshape(RES, RES, 3) / SPP
+    assert np.isfinite(img).all(), "non-finite sharded image"
+    n_fine = int((~np.isclose(img, e2e["image"], rtol=1e-4, atol=1e-5).all(-1)).sum())
+    rays = regen_recs[0]["rays"]
+    checksum = regen_recs[0]["checksum"]
+    gap_c = checksum / REF_CHECKSUM_CACHED - 1.0
+    gap_r = rays / e2e["rays"] - 1.0
+    slowest = max(r["seconds"] for r in regen_recs)
+    for r in regen_recs:
+        log(f"[sharded] (a) rank {r['rank']} of {SHARD_RANKS} (gloo, cuda:0): veach {RES}^2 x "
+            f"{SPP} spp cached, its {RES * RES // SHARD_RANKS} interleaved pixels: "
+            f"{r['seconds']:.2f} s, launches {r['launches']}")
+    log(f"[sharded] (a) {SHARD_RANKS} ranks: {slowest:.2f} s (slowest rank) against phase 6's "
+        f"one process {e2e['seconds']:.2f} s; {rays} rays ({gap_r:+.3e} against phase 6, "
+        f"bound {SHARD_RAYS_GAP:g}), fb_checksum {checksum:.1f} (gap to the reference "
+        f"{gap_c:+.3e}, bound {CHECKSUM_GAP_CACHED:g}); of {RES * RES} pixels {n_fine} beyond "
+        f"rtol 1e-4 / atol 1e-5 against phase 6's image (bound {SHARD_PIXEL_SHARE:.1%}); "
+        f"{wall:.1f} s wall for the ranks' processes")
+    for r in regen_recs:
+        assert all(n > 0 for n in r["launches"].values()), \
+            f"rank {r['rank']} did not launch every kernel: {r['launches']}"
+        assert r["rays"] == rays, "the ranks disagree on the summed ray count"
+    assert abs(gap_r) <= SHARD_RAYS_GAP and abs(gap_c) <= CHECKSUM_GAP_CACHED, \
+        "the sharded render drifted"
+    assert n_fine <= SHARD_PIXEL_SHARE * RES * RES, "the sharded image differs from phase 6's"
+
+    for shape in ([SHARD_RANKS], [1, SHARD_RANKS]):
+        tr = sorted((r for r in recs if r["job"] == "train" and r["mesh"] == shape),
+                    key=lambda r: r["rank"])
+        assert len(tr) == SHARD_RANKS, f"ranks reported {len(tr)} train runs on {shape}"
+        losses = tr[0]["losses"]
+        log(f"[sharded] (c) train step, mesh {shape}, cornell 256^2, {INV_RAYS} rays, depth 3, "
+            f"lr {TRAIN_LR}: losses {losses}; {tr[0]['seconds'] / TRAIN_STEPS * 1e3:.1f} ms a "
+            f"step (rank 0); step 0 against the CPU: loss gap {tr[0]['cpu_loss_gap']:.3e}, "
+            f"materials max abs gap {tr[0]['cpu_mat_err']:.3e} (bound rtol {TRAIN_CPU_RTOL:g} / "
+            f"atol 1e-6); "
+            f"launches {[r['launches'] for r in tr]}")
+        for r in tr:
+            assert np.isfinite(r["losses"]).all() and r["losses"][-1] < r["losses"][0], \
+                f"rank {r['rank']}: the train step did not descend: {r['losses']}"
+            assert r["digests"] == tr[0]["digests"], "the ranks' materials differ"
+            assert r["losses"] == losses, "the ranks' losses differ"
+            assert r["cpu_loss_gap"] <= TRAIN_CPU_RTOL and r["cpu_mat_ok"], \
+                "the train step on the card disagrees with the CPU"
+            assert all(r["launches"][k] > 0 for k in list(KERNELS)[:3]), \
+                f"rank {r['rank']}: K1-K3 did not launch: {r['launches']}"
+    _phase_sharded_nccl(scene)
+    return {k: [r["launches"][k] for r in regen_recs] for k in KERNELS}
+
+
 def main():
+    if sys.argv[1:2] == ["--rank"]:
+        rank_main(sys.argv[2])
+        return
     name, smi = phase_device()
     phase_build()
     scene_cpu = load_scene(VEACH, device="cpu")
     scene = with_res(scene_cpu, RES, RES).to("cuda")
     kernels = phase_kernels(scene) + phase_culled(scene)
     phase_end_to_end(scene, cached=False)
-    launches, _ = phase_end_to_end(scene, cached=True)
+    launches, e2e = phase_end_to_end(scene, cached=True)
     phase_two_devices(scene_cpu)
     fixed = phase_fixed_depth(scene, kernels)
     phase_gradient(scene_cpu)
     auto = phase_auto_cull()
     phase_cli()
     phase_inverse()
+    sharded = phase_sharded(scene, e2e)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_sharded"] = sharded[k["name"]]
         k["launches_fixed_depth"] = fixed[k["name"]]
         k.update(auto.get(k["name"], {}))
     kernels.sort(key=lambda k: k["name"])

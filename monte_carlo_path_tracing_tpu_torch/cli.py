@@ -19,9 +19,10 @@ shoot``, ``--accel grid``, ``--ref-mis-weights``, ``--ref-mis-full``,
 ``--impl`` and ``--dot-mode`` with any value (the port's kernels are exact
 f32 CUDA), ``--no-fused-arvo`` (on the card the Arvo pick is always the K3
 kernel) and ``--fused-arvo`` with ``--cpu`` (no kernel runs on the CPU).
-The JAX CLI's multi-host bring-up (``init_distributed_if_needed``) waits for
-the port of ``parallel/`` (ROADMAP queue 1, "``parallel/`` on
-``torch.distributed``"); this CLI renders on one device.
+Like the JAX CLI, ``main()`` first calls ``init_distributed_if_needed``
+(``parallel/mesh.py``): under torchrun's or SLURM's variables it joins the
+process group (NCCL; gloo with ``--cpu``), and otherwise does nothing. Each
+process then renders as it does alone.
 """
 
 from __future__ import annotations
@@ -252,6 +253,13 @@ def cmd_inverse(args) -> int:
 
 
 def main(argv=None) -> int:
+    # Multi-process bring-up first (a no-op unless a launcher set the
+    # variables), as the JAX CLI does.
+    from monte_carlo_path_tracing_tpu_torch.parallel.mesh import init_distributed_if_needed
+
+    init_distributed_if_needed("gloo" if "--cpu" in (sys.argv[1:] if argv is None else argv)
+                               else "nccl")
+
     ap = argparse.ArgumentParser(prog="monte_carlo_path_tracing_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 

@@ -14,7 +14,11 @@ with ``& 0xFFFFFFFF`` masks. What is reproduced (jax 0.9, with
 - ``fold_in(key, d)``: ``threefry2x32(key, (0, d))`` — the two output words
   are the new key;
 - ``random_bits(key, 32, shape)``: counts are the 64-bit iota over
-  ``shape`` split into (hi, lo) words; bits = ``out0 ^ out1``;
+  ``shape`` split into (hi, lo) words; bits = ``out0 ^ out1``. A draw of
+  a scalar key whose leading axis is rays takes its counts from the iota
+  over the GLOBAL shape when jax partitions it over devices, so a shard
+  of rows [r0, r0 + n) draws counts from ``r0 * prod(shape[1:])``: the
+  ``row_offset`` keyword of the draws below (``render_rays_sharded``);
 - ``uniform``: ``bitcast((bits >> 9) | 0x3F800000) - 1``, then
   ``max(minval, f * (maxval - minval) + minval)``;
 - ``split(key, n)``: ``threefry2x32(key, (0, i))`` for i < n, the same
@@ -99,25 +103,34 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return fold_in(key, torch.arange(num, dtype=torch.int64, device=key.device))
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
+def random_bits(key: torch.Tensor, shape, row_offset: int = 0) -> torch.Tensor:
     """32-bit random words of ``shape`` per key (jax's partitionable
     ``random_bits``): a scalar key [2] gives ``shape``; a batched key
-    [N, 2] gives ``[N, *shape]``, one independent draw per key."""
+    [N, 2] gives ``[N, *shape]``, one independent draw per key.
+
+    ``row_offset`` r0 makes a scalar key's draw rows [r0, r0 + shape[0])
+    of the same draw over more rows, bit for bit: the counts start at
+    ``r0 * prod(shape[1:])``. A batched key ignores it (each lane's draw
+    is its own)."""
     shape = tuple(shape)
     n = math.prod(shape)
-    lo = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
+    start = row_offset * math.prod(shape[1:]) if key.dim() == 1 else 0
+    count = torch.arange(start, start + n, dtype=torch.int64, device=key.device).reshape(shape)
+    hi, lo = (0, count) if start + n <= 1 << 32 else (count >> 32, count & _M32)
     k0 = key[..., 0].reshape(key.shape[:-1] + (1,) * len(shape))
     k1 = key[..., 1].reshape(key.shape[:-1] + (1,) * len(shape))
-    y0, y1 = threefry2x32(k0, k1, 0, lo)
+    y0, y1 = threefry2x32(k0, k1, hi, lo)
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
+def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0,
+            row_offset: int = 0) -> torch.Tensor:
     """f32 uniform draw, bit-equal to ``jax.random.uniform``. A batched
-    [N, 2] key draws ``shape[1:]`` per lane (``shape[0]`` must equal N)."""
+    [N, 2] key draws ``shape[1:]`` per lane (``shape[0]`` must equal N);
+    a scalar key's ``row_offset`` is :func:`random_bits`'s."""
     shape = tuple(shape)
     if key.dim() == 1:
-        bits = random_bits(key, shape)
+        bits = random_bits(key, shape, row_offset)
     else:
         if shape[0] != key.shape[0]:
             raise ValueError(f"batched key {tuple(key.shape)} vs shape {shape}")
@@ -164,11 +177,13 @@ def pick_weighted(
     weights: torch.Tensor,
     n_rows: int,
     weights_sum: torch.Tensor | None = None,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """[n_rows] categorical draws proportional to non-negative ``weights``
-    by inverse CDF: one uniform per row. All-zero rows return the last
-    index; a caller-supplied ``weights_sum`` above cdf[-1] by rounding may
-    clamp a u near 1 to the last column (the documented CDF-boundary
-    fringe of the JAX package)."""
-    u = uniform(key, (n_rows,))
+    by inverse CDF: one uniform per row (from row ``row_offset`` of a
+    scalar key's draw). All-zero rows return the last index; a
+    caller-supplied ``weights_sum`` above cdf[-1] by rounding may clamp a
+    u near 1 to the last column (the documented CDF-boundary fringe of the
+    JAX package)."""
+    u = uniform(key, (n_rows,), row_offset=row_offset)
     return pick_from_uniform(u, weights, weights_sum)

@@ -69,10 +69,10 @@ def gather_interaction(scene: Scene, hit: Hit, rd: torch.Tensor,
     )
 
 
-def russian_roulette(key: torch.Tensor, n: int, p_survive: float):
+def russian_roulette(key: torch.Tensor, n: int, p_survive: float, row_offset: int = 0):
     """Survive mask [n] and 1/p weight (reference: ksi > 0.6 => stop,
-    main.cpp:321-329)."""
-    return rng.uniform(key, (n,)) < p_survive, 1.0 / p_survive
+    main.cpp:321-329). A scalar key draws from row ``row_offset`` on."""
+    return rng.uniform(key, (n,), row_offset=row_offset) < p_survive, 1.0 / p_survive
 
 
 def area_pdf_to_solid_angle(pdf_area, dist2, cos_light):

@@ -51,11 +51,14 @@ COMPAT_ITEM = 'ROADMAP queue 1, "Compat and accel extras"'
 
 
 def render_rays(scene: Scene, cfg: RenderConfig, key: torch.Tensor, ro: torch.Tensor,
-                rd: torch.Tensor, with_stats: bool = False, accel=None):
+                rd: torch.Tensor, with_stats: bool = False, accel=None, row_offset: int = 0):
     """Radiance [N,3] arriving at the ray origins along -rd, one path per
     ray, on the device of the scene's tensors. ``key`` holds the [N,2]
     lane keys (``rng.lane_keys``); every draw is
-    fold(fold(lane key, bounce), purpose), as in the JAX package.
+    fold(fold(lane key, bounce), purpose), as in the JAX package. A scalar
+    [2] key draws each (bounce, purpose) over the N rays at once; then
+    ``row_offset`` r0 makes the rays rows [r0, r0 + N) of a larger batch,
+    whose draws they take bit for bit (``parallel.render_rays_sharded``).
 
     ``with_stats=True`` also returns {"rays": int64 tensor, the extension
     and shadow rays of lanes live at each trace; "nonfinite": lanes whose
@@ -81,7 +84,7 @@ def render_rays(scene: Scene, cfg: RenderConfig, key: torch.Tensor, ro: torch.Te
     if accel is None:
         accel = ops_intersect.build_accel(scene)
     L, nrays = runs[cfg.estimator](scene, cfg, accel, common.light_index_table(scene),
-                                   key.to(ro.device), ro, rd)
+                                   key.to(ro.device), ro, rd, row_offset)
     nonfinite = (~torch.isfinite(L).all(dim=-1)).sum()
     if cfg.debug_checks:
         # Tripwire (the reference's printf style, main.cpp:110 / Myobj.cpp:465).
@@ -105,11 +108,12 @@ def _init(ro):
             torch.zeros((), dtype=torch.int64, device=dev))
 
 
-def _brdf_step(cfg, key, d, si, alive, tp, w_rr=1.0):
+def _brdf_step(cfg, key, d, si, alive, tp, w_rr=1.0, row_offset=0):
     """Sample the BRDF continuation and weight the throughput: (bs, alive,
     tp). The pdf in the denominator is detached."""
     bs = phong.sample_brdf(rng.bounce_key(key, d, rng.P_BSDF), si.ns, si.wo, si.kd, si.ks,
-                           si.ns_exp, branch_pdf_compat=cfg.branch_pdf_compat)
+                           si.ns_exp, branch_pdf_compat=cfg.branch_pdf_compat,
+                           row_offset=row_offset)
     cos_i = vm.dot(bs.wi, si.ns)
     alive = alive & (cos_i > 0.0) & (bs.pdf > 1e-12)
     f = phong.eval_brdf(si.ns, bs.wi, si.wo, si.kd, si.ks, si.ns_exp)
@@ -121,7 +125,7 @@ def _brdf_step(cfg, key, d, si, alive, tp, w_rr=1.0):
 # BRDF-only estimator (shade_with_brdf, main.cpp:348-399)
 # ---------------------------------------------------------------------------
 
-def _run_brdf(scene, cfg, accel, tri_to_light, key, ro, rd):
+def _run_brdf(scene, cfg, accel, tri_to_light, key, ro, rd, r0):
     N = ro.shape[0]
     active, excl, tp, L, nrays = _init(ro)
     for d in range(cfg.max_depth):
@@ -140,8 +144,8 @@ def _run_brdf(scene, cfg, accel, tri_to_light, key, ro, rd):
 
         # Russian roulette (main.cpp:375-380), then the BRDF bounce.
         survive, w_rr = common.russian_roulette(rng.bounce_key(key, d, rng.P_RR), N,
-                                                cfg.rr_prob)
-        bs, alive, tp = _brdf_step(cfg, key, d, si, alive & survive, tp, w_rr)
+                                                cfg.rr_prob, r0)
+        bs, alive, tp = _brdf_step(cfg, key, d, si, alive & survive, tp, w_rr, r0)
         active, ro, rd, excl = alive, si.p, bs.wi, hit.tri_id
     return L, nrays
 
@@ -197,11 +201,12 @@ def _nee_term(scene, cfg, accel, si, ls, wsum, alive, cull=None):
     return torch.where(visible[:, None], contrib, torch.zeros_like(contrib))
 
 
-def _sample_light(key, scene, cfg, si, consts=None, table=None):
+def _sample_light(key, scene, cfg, si, consts=None, table=None, row_offset=0):
     """The configured light sampler: (LightSample, weights_sum or None)."""
     if cfg.light_sampler == LS_SPHERICAL:
-        return light_spherical.sample(key, scene, si.p, si.ns, consts=consts, table=table)
-    return light_uniform.sample(key, scene, si.p.shape[0]), None
+        return light_spherical.sample(key, scene, si.p, si.ns, consts=consts, table=table,
+                                      row_offset=row_offset)
+    return light_uniform.sample(key, scene, si.p.shape[0], row_offset), None
 
 
 def _direct_term(scene, cfg, accel, si, ls, alive, cull=None):
@@ -228,7 +233,7 @@ def _direct_term(scene, cfg, accel, si, ls, alive, cull=None):
 # Split direct / indirect estimator (shade, main.cpp:269-344)
 # ---------------------------------------------------------------------------
 
-def _run_split(scene, cfg, accel, tri_to_light, key, ro, rd):
+def _run_split(scene, cfg, accel, tri_to_light, key, ro, rd, r0):
     N = ro.shape[0]
     consts, table = _light_tables(scene, cfg)
     active, excl, tp, L, nrays = _init(ro)
@@ -249,14 +254,14 @@ def _run_split(scene, cfg, accel, tri_to_light, key, ro, rd):
 
         # Direct light through the configured sampler (main.cpp:298-314).
         ls, _ = _sample_light(rng.bounce_key(key, d, rng.P_LIGHT_SELECT), scene, cfg, si,
-                              consts=consts, table=table)
+                              consts=consts, table=table, row_offset=r0)
         nrays = nrays + alive.sum()                      # shadow rays
         L = L + tp * _direct_term(scene, cfg, accel, si, ls, alive)
 
         # RR gates only the indirect continuation (main.cpp:321-329).
         survive, w_rr = common.russian_roulette(rng.bounce_key(key, d, rng.P_RR), N,
-                                                cfg.rr_prob)
-        bs, alive, tp = _brdf_step(cfg, key, d, si, alive & survive, tp, w_rr)
+                                                cfg.rr_prob, r0)
+        bs, alive, tp = _brdf_step(cfg, key, d, si, alive & survive, tp, w_rr, r0)
         active, ro, rd, excl = alive, si.p, bs.wi, hit.tri_id
     return L, nrays
 
@@ -274,7 +279,7 @@ def _light_tables(scene, cfg):
 # Veach MIS estimator (shade_with_mis, main.cpp:402-494)
 # ---------------------------------------------------------------------------
 
-def _run_mis(scene, cfg, accel, tri_to_light, key, ro, rd):
+def _run_mis(scene, cfg, accel, tri_to_light, key, ro, rd, r0):
     N = ro.shape[0]
     spherical = cfg.light_sampler == LS_SPHERICAL
     consts, table = _light_tables(scene, cfg)
@@ -302,7 +307,7 @@ def _run_mis(scene, cfg, accel, tri_to_light, key, ro, rd):
 
         # RR gates both strategies (main.cpp:429-437).
         survive, w_rr = common.russian_roulette(rng.bounce_key(key, d, rng.P_RR), N,
-                                                cfg.rr_prob)
+                                                cfg.rr_prob, r0)
         alive = alive & survive
         tp = torch.where(alive[:, None], tp * w_rr, tp)
 
@@ -310,14 +315,15 @@ def _run_mis(scene, cfg, accel, tri_to_light, key, ro, rd):
         k_light = rng.bounce_key(key, d, rng.P_LIGHT_SELECT)
         if spherical:
             ls, wsum = light_spherical.sample(k_light, scene, si.p, si.ns, consts=consts,
-                                              table=table)
+                                              table=table, row_offset=r0)
         else:
-            ls, wsum = light_uniform.sample(k_light, scene, N), torch.zeros(N, device=ro.device)
+            ls = light_uniform.sample(k_light, scene, N, r0)
+            wsum = torch.zeros(N, device=ro.device)
         nrays = nrays + alive.sum()                      # shadow rays
         L = L + tp * _nee_term(scene, cfg, accel, si, ls, wsum, alive)
 
         # BRDF strategy: sample, weight, continue (main.cpp:471-491).
-        bs, alive, tp = _brdf_step(cfg, key, d, si, alive, tp)
+        bs, alive, tp = _brdf_step(cfg, key, d, si, alive, tp, row_offset=r0)
         active, ro, rd, excl = alive, si.p, bs.wi, hit.tri_id
         prev_pb, prev_p, prev_ns, prev_wsum = bs.pdf.detach(), si.p, si.ns, wsum
     return L, nrays

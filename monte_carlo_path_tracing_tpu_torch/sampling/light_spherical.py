@@ -85,11 +85,11 @@ def prepare(scene: Scene, x1: torch.Tensor, n: torch.Tensor, consts=None):
     return arvo_cuda.prepare_from_consts(C, x1, n, EPS)
 
 
-def _arvo_warp(key, A, B, C, alpha, cos_c, sA):
+def _arvo_warp(key, A, B, C, alpha, cos_c, sA, row_offset: int = 0):
     """Arvo §5.2 uniform sample of a spherical triangle (Mylight.cpp:289-297).
     Returns unit directions [N,3]."""
     N = A.shape[0]
-    xi = rng.uniform(key, (N, 2))
+    xi = rng.uniform(key, (N, 2), row_offset=row_offset)
     sA1 = xi[:, 0] * sA
     s = torch.sin(sA1 - alpha)
     t = torch.cos(sA1 - alpha)
@@ -111,22 +111,25 @@ def _arvo_warp(key, A, B, C, alpha, cos_c, sA):
 
 
 def sample(key, scene: Scene, x1: torch.Tensor, n: torch.Tensor,
-           consts=None, table=None):
+           consts=None, table=None, row_offset: int = 0):
     """Batched 'lights_spherical_triangle_sampling' (Mylight.cpp:424-482).
     Returns (LightSample, weights_sum [N]); points with no projectable
-    light triangle get the reference's dummy sample (valid=False)."""
+    light triangle get the reference's dummy sample (valid=False). A
+    scalar key draws from row ``row_offset`` on."""
     C = arvo_cuda.pack_consts(scene) if consts is None else consts
     k_sel, k_warp = rng.fold_in(key, 0), rng.fold_in(key, 1)
-    u = rng.uniform(k_sel, (x1.shape[0],))
+    u = rng.uniform(k_sel, (x1.shape[0],), row_offset=row_offset)
     # The pick runs outside autograd (K3 on the card): a discrete choice,
     # and weights_sum reaches only detached pdfs.
     lidx, weights_sum = arvo_cuda.arvo_select(C.detach(), x1.detach().contiguous(),
                                               n.detach().contiguous(), u)
-    ls = sample_from_pick(k_warp, scene, x1, n, lidx, weights_sum, table=table)
+    ls = sample_from_pick(k_warp, scene, x1, n, lidx, weights_sum, table=table,
+                          row_offset=row_offset)
     return ls, weights_sum
 
 
-def sample_from_pick(k_warp, scene: Scene, x1, n, lidx, weights_sum, table=None) -> LightSample:
+def sample_from_pick(k_warp, scene: Scene, x1, n, lidx, weights_sum, table=None,
+                     row_offset: int = 0) -> LightSample:
     """Arvo-warp a direction inside the selected triangle ``lidx`` and land
     the point on the flat triangle (Mylight.cpp:449-481)."""
     has = weights_sum > EPS
@@ -137,7 +140,7 @@ def sample_from_pick(k_warp, scene: Scene, x1, n, lidx, weights_sum, table=None)
     l_sum_s = rec[:, 15]
 
     A, B, C, alpha, cos_c, sA = _project_for_warp(x1, n, pa_s, pb_s, pc_s)
-    P = _arvo_warp(k_warp, A, B, C, alpha, cos_c, sA)
+    P = _arvo_warp(k_warp, A, B, C, alpha, cos_c, sA, row_offset)
 
     # Land on the flat triangle: plane intersection along P.
     denom = vm.dot(nl, P)

@@ -47,12 +47,13 @@ def select_table(scene: Scene) -> torch.Tensor:
     return p_class[cls] * (area / torch.clamp(class_area[cls], min=1e-30))
 
 
-def sample(key: torch.Tensor, scene: Scene, n_rays: int) -> LightSample:
+def sample(key: torch.Tensor, scene: Scene, n_rays: int, row_offset: int = 0) -> LightSample:
     """One light point per ray: the pick from ``fold_in(key, 0)``, the warp
-    from ``fold_in(key, 1)``."""
+    from ``fold_in(key, 1)``; a scalar key draws from row ``row_offset``
+    on."""
     p_sel = select_table(scene)
-    lidx = rng.pick_weighted(rng.fold_in(key, 0), p_sel, n_rays)
-    xi = rng.uniform(rng.fold_in(key, 1), (n_rays, 2))
+    lidx = rng.pick_weighted(rng.fold_in(key, 0), p_sel, n_rays, row_offset=row_offset)
+    xi = rng.uniform(rng.fold_in(key, 1), (n_rays, 2), row_offset=row_offset)
     beta = 1.0 - torch.sqrt(torch.clamp(1.0 - xi[:, 0], min=0.0))
     gamma = (1.0 - beta) * xi[:, 1]
     li = lidx.long()

@@ -77,11 +77,13 @@ def pdf_brdf(n, wi, wo, kd, ks, ns) -> torch.Tensor:
     return pd * p_diff + ps * p_spec
 
 
-def sample_brdf(key, n, wo, kd, ks, ns, branch_pdf_compat: bool = False) -> BsdfSample:
-    """Draw wi from the two-lobe Phong mixture (BRDF.cpp:28-100)."""
+def sample_brdf(key, n, wo, kd, ks, ns, branch_pdf_compat: bool = False,
+                row_offset: int = 0) -> BsdfSample:
+    """Draw wi from the two-lobe Phong mixture (BRDF.cpp:28-100). A scalar
+    key draws from row ``row_offset`` on (``rng.random_bits``)."""
     N = n.shape[0]
-    xi_lobe = rng.uniform(rng.fold_in(key, 0), (N,))
-    xi = rng.uniform(rng.fold_in(key, 1), (N, 2))
+    xi_lobe = rng.uniform(rng.fold_in(key, 0), (N,), row_offset=row_offset)
+    xi = rng.uniform(rng.fold_in(key, 1), (N, 2), row_offset=row_offset)
 
     pd, ps = lobe_probs(kd, ks)
     pick_spec = xi_lobe >= pd

@@ -86,6 +86,39 @@ def test_render_regen_npy(capsys, tmp_path):
     assert json.loads(lines[-1])["spp"] == 2
 
 
+def test_render_under_a_world_size_1_launch(capsys, tmp_path, monkeypatch):
+    """cli.main under torchrun's variables for one process, with --cpu:
+    it joins a gloo group first (init_distributed_if_needed), and its image
+    and JSON equal the run without the variables."""
+    import socket
+
+    import torch.distributed as dist
+
+    argv = ["render", SCENE, "--width", "12", "--height", "12", "--spp", "2", "--max-depth",
+            "4", "--regen", "--lanes", "128", "--cpu", "--out"]
+    plain, launched = str(tmp_path / "plain.npy"), str(tmp_path / "launched.npy")
+    rc, lines, _ = _run(capsys, argv + [plain])
+    assert rc == 0 and not dist.is_initialized()
+    want = json.loads(lines[-1])
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0",
+                     LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    try:
+        rc, lines, _ = _run(capsys, argv + [launched])
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        assert dist.get_backend() == "gloo"
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    got = json.loads(lines[-1])
+    assert rc == 0 and got["spp"] == want["spp"] and got["mean_radiance"] == want["mean_radiance"]
+    assert np.array_equal(np.load(launched), np.load(plain))
+
+
 def test_inverse_runs(capsys):
     rc, lines, err = _run(capsys, ["inverse", SCENE, "--width", "8", "--height", "8",
                                    "--max-depth", "2", "--steps", "3", "--rays-per-step", "32",

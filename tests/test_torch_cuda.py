@@ -2,7 +2,8 @@
 also against K1 / K2), and the port's renders on the card against the same
 renders on the CPU: the regeneration render uncached and cached, bathroom
 with accel="auto" (K4 / K5 in the loop), the fixed-depth render_image,
-pixel_grad and recover_materials.
+pixel_grad, recover_materials, and the sharded regeneration render at
+world size 1 on NCCL.
 
 Needs an NVIDIA GPU: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where only PyTorch is installed:
@@ -592,6 +593,46 @@ def test_render_card_matches_cpu(dev, primary_cache):
     assert abs(a.rays_traced - b.rays_traced) <= a.rays_traced // 1000
     diverged = ~np.isclose(b.image, a.image, rtol=1e-2, atol=1e-3).all(-1)
     assert int(diverged.sum()) <= max(2, diverged.size // 100)
+
+
+def test_render_regen_sharded_world_size_1_matches_unsharded(dev, monkeypatch):
+    """parallel.render_regen_sharded at world size 1 on NCCL, joined through
+    init_distributed_if_needed under torchrun's variables: the cached route
+    on the card (K1-K5 launch) equals render_image_regen of the same
+    configuration within rtol 1e-5 / atol 1e-6 (index_add_ sums in another
+    order), with the same ray count."""
+    import socket
+
+    import torch.distributed as dist
+
+    from monte_carlo_path_tracing_tpu_torch.parallel import make_mesh
+    from monte_carlo_path_tracing_tpu_torch.parallel.mesh import init_distributed_if_needed
+    from monte_carlo_path_tracing_tpu_torch.parallel.sharded import render_regen_sharded
+
+    sc = _scene("cornell", 24).to(dev)
+    cfg = RenderConfig(width=24, height=24, spp=2, estimator="mis", seed=11, max_depth=32)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0",
+                     LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    kernels = [intersect_cuda.nearest_hit, intersect_cuda.occluded, arvo_cuda.arvo_select,
+               intersect_cuda.nearest_hit_culled, intersect_cuda.occluded_culled]
+    try:
+        init_distributed_if_needed(timeout_s=120)
+        assert dist.get_backend() == "nccl"
+        counts = [k.launches for k in kernels]
+        fb, rays = render_regen_sharded(sc, cfg, rng.base_key(cfg.seed, device=dev),
+                                        make_mesh((1,)), lanes_per_device=512, spp_cap=cfg.spp)
+        assert all(k.launches > n for k, n in zip(kernels, counts))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    want = render_image_regen(sc, cfg, lanes=512)
+    np.testing.assert_allclose(fb.reshape(24, 24, 3) / cfg.spp, want.image, rtol=1e-5, atol=1e-6)
+    assert rays == want.rays_traced
 
 
 @pytest.mark.parametrize("estimator", ["mis", "split", "brdf"])
