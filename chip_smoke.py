@@ -78,7 +78,25 @@ exits non-zero without printing a result:
    cornell 256^2 (MIS, depth 3, 4,096 rays) over a (2,) tiles and a
    (1, 2) tiles x spp mesh: 5 steps descend, the materials are
    bit-identical across the ranks after every step, step 0 agrees with
-   the same step on the CPU, K1-K3 launch in every rank.
+   the same step on the CPU, K1-K3 launch in every rank;
+14. compat (the reference-parity options): (a) ``ref_mis_weights`` on the
+   main path (phase 6's configuration and cached route): K1-K5 launch, K1
+   also on the lights-only accel in the prepass and the loop (counted
+   apart), seconds and rays beside phase 6's; at 512^2 x 2 spp cached
+   against uncached (rays equal, checksum gap within 1e-4); K1 on the
+   lights-only accels of cornell (2 triangles) and Veach (320) against its
+   plain version at the loop's 65,536 rays, timed with its bound; (b) the
+   blocker-chain queue (``mis_blocker_compat``) on Veach 1024^2 x 2 spp
+   uncached at 32,768 lanes against the same render without it (chains >
+   0, more rays, spilled and mean radiance reported), and card against
+   CPU on cornell 32^2 x 2 spp (rays within 0.5%; chains and the mean
+   within Monte Carlo bounds, since one diverged path renumbers the later
+   chains' streams); (c) ``estimator="shoot"`` through
+   ``render_image`` on cornell 256^2 x 1 spp (finite, K1 launches), card
+   against CPU at 32^2; (d) the uniform grid on phase 4's camera fan
+   against K1 (ids, milliseconds of both), ``render_image`` with
+   ``accel="grid"`` against all pairs on cornell 64^2 x 2 spp, and the
+   regen render with ``"grid"`` equal to ``"all_pairs"``.
 
 The last lines are a JSON object of per-kernel results (time, plain
 version's time, bound — the larger of the operations this run's inputs
@@ -90,7 +108,10 @@ the separately rounded instance; K4 / K5 also ``launches_auto`` on
 bathroom's auto render and, on its recorded loop batch, ``loop_ms``,
 ``loop_k1_ms`` / ``loop_k2_ms`` and ``loop_bound_ms``; every kernel
 ``launches_sharded``, its launches in each rank of phase 13's sharded
-render), the card's
+render; ``launches_ref_mis`` and ``launches_blocker``, its launches in
+phase 14's ref-MIS cached render and blocker render; K1 also
+``light_accel``, its times on the lights-only accels, and ``grid_fan``,
+the grid's and K1's times on the camera fan), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
@@ -118,6 +139,7 @@ from monte_carlo_path_tracing_tpu_torch.diff import inverse
 from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
 from monte_carlo_path_tracing_tpu_torch.integrator import common, regen, render_rays
 from monte_carlo_path_tracing_tpu_torch.ops import _build, arvo_cuda, intersect_cuda
+from monte_carlo_path_tracing_tpu_torch.ops import grid as grid_mod
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.parallel import make_mesh, make_train_step
 from monte_carlo_path_tracing_tpu_torch.parallel import mesh as pmesh
@@ -229,6 +251,18 @@ INV_STEPS, INV_RAYS, INV_RES, INV_LOSS_RTOL, INV_LATENT_ATOL = 30, 4096, 32, 1e-
 SHARD_RANKS, SHARD_PIXEL_SHARE, SHARD_RAYS_GAP, SHARD_NCCL_RES = 2, 1e-3, 1e-6, 256
 TRAIN_STEPS, TRAIN_LR, TRAIN_CPU_RTOL = 5, 1.0, 1e-4
 RENDEZVOUS_S, RANK_S = 120, 600
+#: Phase "compat": (a) the main path with ref_mis_weights, and cached
+#: against uncached at COMPAT_SMALL^2 x 2 spp (rays equal, checksum gap
+#: within COMPAT_CACHE_GAP: the two routes sum the same paths in another
+#: order); (b) the blocker queue on Veach at BLOCKER_SPP spp, and card
+#: against CPU on cornell BLOCKER_CPU_RES^2 x 2 spp; (c) the shoot
+#: estimator on cornell SHOOT_RES^2 x 1 spp, card against CPU at
+#: SHOOT_CPU_RES^2; (d) render_image with the grid on cornell GRID_RES^2
+#: (grid_n0 GRID_N0_CORNELL, as JAX tests/test_grid.py:134 builds it).
+COMPAT_SMALL, COMPAT_CACHE_GAP = 512, 1e-4
+BLOCKER_SPP, BLOCKER_CPU_RES = 2, 32
+SHOOT_RES, SHOOT_CPU_RES = 256, 32
+GRID_RES, GRID_N0_CORNELL = 64, 5000
 
 
 def log(*a):
@@ -1443,6 +1477,252 @@ def phase_sharded(scene, e2e):
     return {k: [r["launches"][k] for r in regen_recs] for k in KERNELS}
 
 
+def record_light_traces(fn, n_lights: int):
+    """Run ``fn()`` counting K1 launches on the lights-only accel (the
+    ref_mis_weights trace), apart in the prepass and in the loop: (its
+    result, {"prepass": n, "loop": n})."""
+    rec = {"prepass": 0, "loop": 0, "in_prepass": False}
+    orig = (regen.primary_prepass, ops_intersect.intersect)
+
+    def prepass(*a, **kw):
+        rec["in_prepass"] = True
+        try:
+            return orig[0](*a, **kw)
+        finally:
+            rec["in_prepass"] = False
+
+    def intersect(accel, *a, **kw):
+        n0 = intersect_cuda.nearest_hit.launches
+        out = orig[1](accel, *a, **kw)
+        if getattr(accel, "num_tris", None) == n_lights:
+            rec["prepass" if rec["in_prepass"] else "loop"] += \
+                intersect_cuda.nearest_hit.launches - n0
+        return out
+
+    regen.primary_prepass, ops_intersect.intersect = prepass, intersect
+    try:
+        out = fn()
+    finally:
+        regen.primary_prepass, ops_intersect.intersect = orig
+    return out, {k: rec[k] for k in ("prepass", "loop")}
+
+
+def _k1_light(scene, tag):
+    """K1 on the lights-only accel at the loop's shape: N_CACHED BRDF rays
+    leaving the shading points of :func:`main_path_inputs`, against its
+    plain version (ids a counted fringe, the separately rounded instance
+    bit-equal), with times and the bound, as phase 3 holds K1."""
+    dev = scene.device
+    la = ops_intersect.build_light_accel(scene)
+    W, ids = la.real_rows()
+    n = N_CACHED
+    _, _, _, _, si = main_path_inputs(scene, ops_intersect.build_accel(scene), n)
+    bs = phong.sample_brdf(rng.fold_in(rng.base_key(4, device=dev), torch.arange(n, device=dev)),
+                           si.ns, si.wo, si.kd, si.ks, si.ns_exp)
+    g = ops_intersect.ray_features(si.p, bs.wi).contiguous()
+    excl = si.tri_id.to(torch.int32).contiguous()
+    hk = intersect_cuda.nearest_hit(g, W, ids, excl)
+    hp = intersect_cuda.nearest_hit_plain(g, W, ids, excl)
+    hs = intersect_cuda.nearest_hit(g, W, ids, excl, fma=False)
+    torch.cuda.synchronize()
+    n_diff, err = _compare_hits(hk, hp)
+    exact = all(torch.equal(a, b) for a, b in ((hs.tri_id, hp.tri_id), (hs.t, hp.t)))
+    ms = time_ms(lambda: intersect_cuda.nearest_hit(g, W, ids, excl))
+    pms = time_ms(lambda: intersect_cuda.nearest_hit_plain(g, W, ids, excl), reps=5)
+    bms, by = bound(n * W.shape[0] * OPS["pair"], nbytes(g, W, ids, excl) + n * 16)
+    log(f"[compat] K1 on {tag}'s lights-only accel: {n} BRDF rays x {W.shape[0]} light "
+        f"triangles, {int(hp.valid.sum())} hit a light; ids differ from plain on {n_diff} "
+        f"(fused dots; bound 0.1%), max err {err:.3g}; separately rounded bit-equal {exact}; "
+        f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bms:.5f} ms ({by}), share {bms / ms:.4f}")
+    assert n_diff <= n // 1000, f"K1 on {tag}'s light accel disagrees with its plain version"
+    assert exact, f"K1 separately rounded on {tag}'s light accel is not the plain version"
+    return dict(T=W.shape[0], rays=n, ids_differ=n_diff, max_abs_err=err, ms=ms, plain_ms=pms,
+                bound_ms=bms, bound_by=by, share=bms / ms)
+
+
+def _compat_ref_mis(scene, e2e):
+    """(a) ref_mis_weights on the main path (phase 6's configuration and
+    route, the cache): K1-K5 launch, K1 also on the lights-only accel in
+    the prepass and the loop; then cached against uncached at
+    COMPAT_SMALL^2 x 2 spp; then K1 on the light accels of cornell (T = 2)
+    and Veach (T = 320)."""
+    cfg = main_cfg(ref_mis_weights=True)
+    assert regen.primary_cache_eligible(cfg), "ref_mis_weights left the cached route"
+    sc = with_res(scene, RES, RES)
+    reset_counters()
+    res, light = record_light_traces(lambda: render_image_regen(sc, cfg, lanes=LANES_CACHED),
+                                     scene.num_lights)
+    launches = counters()
+    img = res.image
+    assert img.shape == (RES, RES, 3) and np.isfinite(img).all(), "non-finite ref-MIS image"
+    checksum = float((img.astype(np.float64) * SPP).sum())
+    log(f"[compat] (a) ref_mis_weights, veach {RES}^2 x {SPP} spp cached, {LANES_CACHED} lanes: "
+        f"{res.seconds:.2f} s, {res.rays_traced} rays, "
+        f"{res.rays_traced / res.seconds / 1e6:.3f} Mrays/s (phase 6: {e2e['seconds']:.2f} s, "
+        f"{e2e['rays']} rays); fb_checksum {checksum:.1f} (phase 6 {e2e['checksum']:.1f}, gap "
+        f"{checksum / e2e['checksum'] - 1.0:+.3e}); launches {launches}; K1 on the light accel: "
+        f"{light['prepass']} in the prepass, {light['loop']} in the loop")
+    assert all(launches[k] > 0 for k in KERNELS), f"a kernel of the path never launched: {launches}"
+    assert light["prepass"] > 0 and light["loop"] > 0, f"K1 skipped the light accel: {light}"
+
+    small = cfg.replace(width=COMPAT_SMALL, height=COMPAT_SMALL, spp=2)
+    ssc = with_res(scene, COMPAT_SMALL, COMPAT_SMALL)
+    ca = render_image_regen(ssc, small, lanes=LANES_CACHED)
+    un = render_image_regen(ssc, small.replace(primary_cache=False), lanes=LANES)
+    sums = [float((r.image.astype(np.float64) * 2).sum()) for r in (ca, un)]
+    gap = sums[0] / sums[1] - 1.0
+    log(f"[compat] (a) {COMPAT_SMALL}^2 x 2 spp: cached {ca.rays_traced} rays, {ca.seconds:.2f} s; "
+        f"uncached {un.rays_traced} rays, {un.seconds:.2f} s; checksum gap {gap:+.3e} (bound "
+        f"{COMPAT_CACHE_GAP:g})")
+    assert ca.rays_traced == un.rays_traced, "cached and uncached ref-MIS rays differ"
+    assert abs(gap) <= COMPAT_CACHE_GAP, "cached and uncached ref-MIS checksums disagree"
+    cornell = with_res(load_scene(CORNELL, device="cpu"), RES, RES).to(scene.device)
+    k1 = {"cornell": _k1_light(cornell, "cornell"), "veach": _k1_light(sc, "veach")}
+    return launches, dict(seconds=res.seconds, rays=res.rays_traced, light=light, k1_light=k1)
+
+
+def _regen_stats(sc, cfg, lanes):
+    """render_regen over every pixel and spp of ``cfg``: (mean image,
+    logical rays, stats, seconds, launches)."""
+    n_pix = sc.camera.width * sc.camera.height
+    reset_counters()
+    t0 = time.perf_counter()
+    fb, nrays, _, stats = regen.render_regen(sc, cfg, rng.base_key(cfg.seed, device=sc.device),
+                                             n_pix, n_pix * cfg.spp, lanes=lanes)
+    img = fb.cpu().numpy().reshape(sc.camera.height, sc.camera.width, 3) / cfg.spp
+    return img, int(nrays), stats, time.perf_counter() - t0, counters()
+
+
+def _compat_blocker(scene):
+    """(b) The blocker-chain queue at the full width (uncached, LANES
+    lanes) against the same configuration without it; then card against
+    CPU on cornell."""
+    sc = with_res(scene, RES, RES)
+    cfg = main_cfg(ref_mis_weights=True, primary_cache=False).replace(spp=BLOCKER_SPP)
+    nb = _regen_stats(sc, cfg, LANES)
+    bl = _regen_stats(sc, cfg.replace(mis_blocker_compat=True), LANES)
+    for tag, (img, rays, st, secs, launches) in (("without", nb), ("with", bl)):
+        assert np.isfinite(img).all(), f"non-finite image {tag} the blocker queue"
+        log(f"[compat] (b) veach {RES}^2 x {BLOCKER_SPP} spp {tag} the blocker queue, {LANES} "
+            f"lanes: {secs:.2f} s, {rays} rays, chains {st.chains}, spilled {st.spilled}, mean "
+            f"radiance {float(img.mean()):.6f}; launches {launches}")
+    assert bl[2].chains > 0, "the blocker queue spawned no chain"
+    assert bl[1] > nb[1], "the chains traced no extra rays"
+    assert bl[4]["K1 nearest_hit"] > 0 and bl[4]["K3 arvo_select"] > 0, "K1 / K3 never ran"
+
+    csc = with_res(load_scene(CORNELL, device="cpu"), BLOCKER_CPU_RES, BLOCKER_CPU_RES)
+    ccfg = RenderConfig(width=BLOCKER_CPU_RES, height=BLOCKER_CPU_RES, spp=2, estimator="mis",
+                        max_depth=32, seed=5, ref_mis_weights=True, mis_blocker_compat=True)
+    a = _regen_stats(csc, ccfg, 1024)
+    b = _regen_stats(csc.to(scene.device), ccfg, 1024)
+    coarse = int((~np.isclose(b[0], a[0], rtol=1e-2, atol=1e-3).all(-1)).sum())
+    log(f"[compat] (b) cornell {BLOCKER_CPU_RES}^2 x 2 spp, card against CPU: rays {b[1]} vs "
+        f"{a[1]}, chains {b[2].chains} vs {a[2].chains}, spilled {b[2].spilled} / "
+        f"{a[2].spilled}; {coarse} pixels beyond rtol 1e-2 / atol 1e-3, means {b[0].mean():.6f} "
+        f"vs {a[0].mean():.6f}")
+    # Chain k draws from fold(chain_base, k), k its place in the enqueue
+    # order: the first path whose ulps take another turn on the card
+    # renumbers every later chain, which then draws other streams. Past
+    # it the two devices agree in distribution: chains within three Poisson
+    # sigmas, means within 1%; the diverged pixels are reported.
+    assert abs(b[1] - a[1]) <= 0.005 * a[1], "blocker rays: card and CPU disagree"
+    assert a[2].chains > 0 and abs(b[2].chains - a[2].chains) <= 3 * a[2].chains ** 0.5, \
+        "blocker chains: card and CPU disagree"
+    assert abs(b[0].mean() / a[0].mean() - 1.0) < 1e-2, "blocker means: card and CPU disagree"
+    return dict(chains=bl[2].chains, spilled=bl[2].spilled, seconds=bl[3], rays=bl[1],
+                rays_without=nb[1], launches=bl[4])
+
+
+def _compat_shoot(dev):
+    """(c) The shoot estimator through render_image on cornell, then card
+    against CPU on the same rays at SHOOT_CPU_RES^2."""
+    sc_cpu = load_scene(CORNELL, device="cpu")
+    sc = with_res(sc_cpu, SHOOT_RES, SHOOT_RES).to(dev)
+    cfg = RenderConfig(width=SHOOT_RES, height=SHOOT_RES, spp=1, estimator="shoot", seed=0)
+    reset_counters()
+    res = render_image(sc, cfg)
+    launches = counters()
+    assert np.isfinite(res.image).all(), "non-finite shoot image"
+    assert launches["K1 nearest_hit"] > 0, f"K1 never ran under shoot: {launches}"
+    log(f"[compat] (c) shoot, cornell {SHOOT_RES}^2 x 1 spp, depth {cfg.max_depth}: "
+        f"{res.seconds:.2f} s, mean radiance {float(res.image.mean()):.6f}; launches {launches}")
+    out = []
+    for d in ("cpu", dev):
+        sd = with_res(sc_cpu, SHOOT_CPU_RES, SHOOT_CPU_RES).to(d)
+        idx = torch.arange(SHOOT_CPU_RES ** 2, device=sd.device)
+        ro, rd = generate_rays(sd.camera, idx)
+        key = rng.lane_keys(rng.sample_key(rng.base_key(0, device=sd.device), 0), idx)
+        L, st = render_rays(sd, cfg, key, ro, rd, with_stats=True)
+        out.append((L.cpu().numpy(), int(st["rays"])))
+    (a, ra), (b, rb) = out
+    beyond = int((~np.isclose(b, a, rtol=1e-3, atol=1e-5).all(-1)).sum())
+    log(f"[compat] (c) {SHOOT_CPU_RES}^2 card against CPU: rays {rb} vs {ra}, {beyond} of "
+        f"{a.shape[0]} pixels beyond rtol 1e-3 / atol 1e-5 (bound 1%)")
+    assert abs(rb - ra) <= 0.005 * ra, "shoot rays: card and CPU disagree"
+    assert beyond <= max(2, a.shape[0] // 100), "shoot radiance: card and CPU disagree"
+    return dict(seconds=res.seconds, beyond=beyond)
+
+
+def _compat_grid(scene):
+    """(d) The uniform grid: intersect_grid on phase 4's camera fan
+    against K1 on the same rays (ids a counted fringe, times of both);
+    render_image with accel="grid" against all pairs on cornell; and the
+    regen render with "grid" equal to "all_pairs"."""
+    (ro, rd), _ = prepass_batches(scene, main_cfg())
+    n = ro.shape[0]
+    accel = ops_intersect.build_accel(scene)
+    W, ids = accel.real_rows()
+    t0 = time.perf_counter()
+    grid = grid_mod.build_grid(scene, n0=RenderConfig().grid_n0)
+    build_s = time.perf_counter() - t0
+    excl = torch.full((n,), ops_intersect.NO_HIT, dtype=torch.int32, device=ro.device)
+    g = ops_intersect.ray_features(ro, rd).contiguous()
+    hg = grid_mod.intersect_grid(grid, ro, rd, excl)
+    hk = intersect_cuda.nearest_hit(g, W, ids, excl)
+    torch.cuda.synchronize()
+    n_diff = int((hg.tri_id != hk.tri_id).sum())
+    same = (hg.tri_id == hk.tri_id) & hk.valid
+    t_err = float((hg.t - hk.t)[same].abs().max()) if bool(same.any()) else 0.0
+    gms = time_ms(lambda: grid_mod.intersect_grid(grid, ro, rd, excl), reps=3, warm=1)
+    kms = time_ms(lambda: intersect_cuda.nearest_hit(g, W, ids, excl))
+    log(f"[compat] (d) grid {grid.dims} ({grid.cell_tris.shape[0]} tri-cell pairs, host build "
+        f"{build_s:.2f} s) on phase 4's {n}-ray camera fan: ids differ from K1 on {n_diff} "
+        f"(bound 1%), max |dt| on equal ids {t_err:.3g}; grid {gms:.2f} ms, K1 {kms:.3f} ms")
+    assert n_diff <= n // 100, "the grid disagrees with K1 on the camera fan"
+
+    csc = with_res(load_scene(CORNELL, device="cpu"), GRID_RES, GRID_RES).to(scene.device)
+    base = dict(width=GRID_RES, height=GRID_RES, spp=2, estimator="mis", max_depth=4, seed=5)
+    bf = render_image(csc, RenderConfig(**base))
+    gr = render_image(csc, RenderConfig(**base, accel="grid", grid_n0=GRID_N0_CORNELL))
+    close = float(np.isclose(gr.image, bf.image, rtol=1e-3, atol=1e-3).mean())
+    mgap = float(gr.image.mean() / bf.image.mean() - 1.0)
+    log(f"[compat] (d) render_image cornell {GRID_RES}^2 x 2 spp, grid against all pairs: "
+        f"{close:.4f} of values within rtol / atol 1e-3 (bound 0.985), mean gap {mgap:+.2e} "
+        f"(bound 5e-3); grid {gr.seconds:.2f} s, all pairs {bf.seconds:.2f} s")
+    assert np.isfinite(gr.image).all() and close > 0.985 and abs(mgap) < 5e-3, \
+        "the grid render disagrees with all pairs"
+    rcfg = RenderConfig(**dict(base, max_depth=16))
+    ra = render_image_regen(csc, rcfg.replace(accel="all_pairs"), lanes=4096)
+    rg = render_image_regen(csc, rcfg.replace(accel="grid"), lanes=4096)
+    log(f"[compat] (d) render_image_regen with grid: {rg.rays_traced} rays vs all pairs "
+        f"{ra.rays_traced}; images equal {bool(np.array_equal(ra.image, rg.image))}")
+    assert ra.rays_traced == rg.rays_traced and np.array_equal(ra.image, rg.image), \
+        "the regen loop with accel='grid' is not its all-pairs loop"
+    return dict(grid_ms=gms, k1_ms=kms, ids_differ=n_diff, rays=n, build_s=build_s,
+                render_s=gr.seconds, render_all_pairs_s=bf.seconds)
+
+
+def phase_compat(scene, e2e):
+    """Phase "compat": the reference-parity options on the card, (a)-(d)."""
+    t0 = time.perf_counter()
+    launches, ref = _compat_ref_mis(scene, e2e)
+    blocker = _compat_blocker(scene)
+    shoot = _compat_shoot(scene.device)
+    grid = _compat_grid(scene)
+    log(f"[compat] phase wall {time.perf_counter() - t0:.1f} s")
+    return launches, dict(ref_mis=ref, blocker=blocker, shoot=shoot, grid=grid)
+
+
 def main():
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2])
@@ -1461,11 +1741,18 @@ def main():
     phase_cli()
     phase_inverse()
     sharded = phase_sharded(scene, e2e)
+    compat_launches, compat = phase_compat(scene, e2e)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_ref_mis"] = compat_launches[k["name"]]
+        k["launches_blocker"] = compat["blocker"]["launches"][k["name"]]
         k["launches_sharded"] = sharded[k["name"]]
         k["launches_fixed_depth"] = fixed[k["name"]]
         k.update(auto.get(k["name"], {}))
+        if k["name"] == "K1 nearest_hit":
+            k["light_accel"] = compat["ref_mis"]["k1_light"]
+            k["grid_fan"] = {x: compat["grid"][x] for x in ("grid_ms", "k1_ms", "ids_differ",
+                                                             "rays")}
     kernels.sort(key=lambda k: k["name"])
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,12 +13,16 @@ Usage examples (on the card; add ``--cpu`` to run on the CPU):
         --steps 200 --perturb 0.2
 
 Scenes load onto the card unless ``--cpu`` asks for the CPU; without a card
-and without ``--cpu`` the command fails. Flags whose code the port does not
-run exit non-zero with a message naming the ROADMAP item: ``--estimator
-shoot``, ``--accel grid``, ``--ref-mis-weights``, ``--ref-mis-full``,
-``--impl`` and ``--dot-mode`` with any value (the port's kernels are exact
-f32 CUDA), ``--no-fused-arvo`` (on the card the Arvo pick is always the K3
-kernel) and ``--fused-arvo`` with ``--cpu`` (no kernel runs on the CPU).
+and without ``--cpu`` the command fails. ``--ref-mis-full`` sets
+``ref_mis_weights`` and ``mis_blocker_compat`` and forces ``--regen`` for
+``render``, as in the JAX CLI; where the JAX CLI fails on a combination
+(``inverse --ref-mis-full``: the blocker queue is a regen feature;
+``inverse --accel grid``: no gradient through the grid) the port fails
+the same way. Flags whose code the port does not run exit non-zero with a
+message naming the ROADMAP item: ``--impl`` and ``--dot-mode`` with any
+value (the port's kernels are exact f32 CUDA), ``--no-fused-arvo`` (on
+the card the Arvo pick is always the K3 kernel) and ``--fused-arvo`` with
+``--cpu`` (no kernel runs on the CPU).
 Like the JAX CLI, ``main()`` first calls ``init_distributed_if_needed``
 (``parallel/mesh.py``): under torchrun's or SLURM's variables it joins the
 process group (NCCL; gloo with ``--cpu``), and otherwise does nothing. Each
@@ -35,7 +39,6 @@ import sys
 import numpy as np
 import torch
 
-COMPAT = 'ROADMAP queue 1, "Compat and accel extras"'
 DO_NOT_PORT = 'ROADMAP queue 1, "Do not port"'
 
 
@@ -60,14 +63,18 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fov-bug-compat", action="store_true")
     p.add_argument("--measure-bug-compat", action="store_true")
     p.add_argument("--branch-pdf-compat", action="store_true")
-    p.add_argument("--ref-mis-weights", action="store_true", help=f"not ported ({COMPAT})")
-    p.add_argument("--ref-mis-full", action="store_true", help=f"not ported ({COMPAT})")
+    p.add_argument("--ref-mis-weights", action="store_true")
+    p.add_argument("--ref-mis-full", action="store_true",
+                   help="full reference MIS parity: ref weights + occluded-blocker recursion "
+                        "via the regen work queue (implies --ref-mis-weights and --regen)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU (default: the card)")
     p.add_argument("--impl", default=None, choices=[None, "pallas", "matmul"],
                    help=f"TPU intersection implementations; not ported ({DO_NOT_PORT})")
     p.add_argument("--accel", default="auto", choices=["auto", "all_pairs", "grid"],
                    help="auto = all pairs, with the loop's lane sort and culled traces "
-                        "on scenes of 24,000 triangles or more; grid not ported")
+                        "on scenes of 24,000 triangles or more; grid = the reference's "
+                        "uniform grid + 3D-DDA (fixed-depth traces; the regen loop runs "
+                        "all pairs)")
     p.add_argument("--dot-mode", default=None, choices=[None, "vpu", "mxu", "mxu_fast"],
                    help=f"TPU dot modes; not ported ({DO_NOT_PORT})")
     p.add_argument("--primary-cache", default=None, action="store_true",
@@ -85,10 +92,6 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
 def _unsupported(args) -> str | None:
     """The message for a flag the port does not run, or None."""
     bad = [
-        (args.estimator == "shoot", f"--estimator shoot (integrator/legacy_shoot.py; {COMPAT})"),
-        (args.accel == "grid", f"--accel grid (ops/grid.py; {COMPAT})"),
-        (args.ref_mis_weights, f"--ref-mis-weights (ref_mis_weights light-accel MIS; {COMPAT})"),
-        (args.ref_mis_full, f"--ref-mis-full (blocker-chain queue; {COMPAT})"),
         (args.impl is not None, f"--impl {args.impl} (TPU intersection; {DO_NOT_PORT})"),
         (args.dot_mode is not None, f"--dot-mode {args.dot_mode} (TPU dot modes; {DO_NOT_PORT})"),
         (args.fused_arvo is False,
@@ -130,6 +133,8 @@ def _make_cfg(args, cam):
         fov_bug_compat=args.fov_bug_compat,
         measure_bug_compat=args.measure_bug_compat,
         branch_pdf_compat=args.branch_pdf_compat,
+        ref_mis_weights=args.ref_mis_weights or args.ref_mis_full,
+        mis_blocker_compat=args.ref_mis_full,
         accel=args.accel, ray_sort=args.ray_sort,
         primary_cache=args.primary_cache,
     )
@@ -155,6 +160,8 @@ def cmd_render(args) -> int:
         except FileNotFoundError:
             pass
 
+    if args.ref_mis_full:
+        args.regen = True   # the blocker queue lives in the regen renderer
     if args.regen:
         on_launch = None
         if args.preview:

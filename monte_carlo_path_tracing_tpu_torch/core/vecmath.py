@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import torch
 
+#: The reference's epsilon (vec.h:7), the default of :func:`is_zero`.
+EPS = 1e-6
+
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[...,3] x [...,3] -> [...]: ((a0 b0 + a1 b1) + a2 b2)."""
@@ -43,6 +46,11 @@ def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return a * torch.where(sq > eps, inv, torch.zeros_like(inv))
 
 
+def is_zero(a: torch.Tensor, eps: float = EPS) -> torch.Tensor:
+    """Per-element zero test with epsilon (the reference's vec.h:7)."""
+    return torch.abs(a) < eps
+
+
 def reflect(wi: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     """Mirror direction of wi about n: 2(wi.n)n - wi (BRDF.cpp:17-25)."""
     return 2.0 * dot(wi, n)[..., None] * n - wi
@@ -62,3 +70,9 @@ def orthonormal_basis(n: torch.Tensor):
 def from_local(w_local, t, b, n):
     """x*t + y*b + z*n."""
     return w_local[..., 0:1] * t + w_local[..., 1:2] * b + w_local[..., 2:3] * n
+
+
+def to_local(w, t, b, n):
+    """Inverse of :func:`from_local` for orthonormal frames (the transpose,
+    matrix3d.cpp:60-72): (w.t, w.b, w.n)."""
+    return torch.stack([dot(w, t), dot(w, b), dot(w, n)], dim=-1)

@@ -27,20 +27,28 @@ and launch splitting, and consumes the same streams as the JAX package.
   default route whenever :func:`primary_cache_eligible` holds.
 
 Estimators: Veach MIS, split and BRDF-only, with the spherical-triangle or
-the uniform-area light sampler. Forward-only, like the JAX loop.
+the uniform-area light sampler. ``ref_mis_weights`` adds the reference's
+nearest-light pdf to every BRDF continuation's denominator (a K1 trace
+against the lights-only accel, in the loop and the pre-pass).
+``mis_blocker_compat`` (uncached only) reproduces the reference's full MIS
+recursion: the light ray of NEE is a nearest-hit trace, and a non-emissive
+occluder it meets becomes a queued continuation path (a blocker chain)
+that free lanes pull, last in first out, before new samples. With
+``accel="grid"`` the loop runs all pairs, as the JAX loop does.
+Forward-only, like the JAX loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
 from monte_carlo_path_tracing_tpu_torch.core import rng, vecmath as vm
 from monte_carlo_path_tracing_tpu_torch.integrator import common
 from monte_carlo_path_tracing_tpu_torch.integrator.wavefront import (
-    COMPAT_ITEM, _direct_term, _light_pdf_of_hit, _nee_term, _sample_light,
+    _direct_term, _light_pdf_along, _light_pdf_of_hit, _nee_term, _sample_light, _shadow_ray,
 )
 from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
@@ -54,9 +62,16 @@ from monte_carlo_path_tracing_tpu_torch.utils.config import (
 )
 
 
+#: Fold level reserved for blocker-chain streams: real streams fold (spp
+#: index, pixel) directly off the base key and never this tag, so chain
+#: streams are disjoint from every launch's real streams (the JAX value).
+_CHAIN_TAG = 0x5EED_CA1
+
+
 class RegenStats(NamedTuple):
-    """Scalar diagnostics of one regen launch. ``spilled`` and ``chains``
-    belong to the blocker-chain queue (not ported: always 0);
+    """Scalar diagnostics of one regen launch. ``spilled`` (chains dropped
+    on queue overflow) and ``chains`` (chains enqueued) belong to the
+    blocker-chain queue (``mis_blocker_compat``; 0 otherwise);
     ``rays_physical`` (set by :func:`render_regen_cached`: the primary ray
     counted once per pixel) 0 means "same as the logical count"."""
 
@@ -92,22 +107,60 @@ def primary_cache_eligible(cfg: RenderConfig) -> bool:
 
 
 def _check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item, for what the
-    port does not run yet."""
-    todo = [
-        (cfg.mis_blocker_compat, "mis_blocker_compat / blocker-chain queue"),
-        (cfg.ref_mis_weights, "ref_mis_weights light-accel MIS"),
-        (cfg.accel == "grid", "accel='grid'"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what} ({COMPAT_ITEM})")
+    """Raise for the options the loop does not run: ``ray_sort_every > 1``
+    (not ported, by decision) and the shoot estimator (as JAX's loop)."""
     if cfg.ray_sort_every > 1:
         raise NotImplementedError(
             'ray_sort_every > 1 is not ported (ROADMAP queue 1, "Do not port"): '
             "the lanes are sorted every iteration")
     if cfg.estimator not in (EST_MIS, EST_BRDF, EST_SPLIT):
         raise ValueError(f"render_regen does not run estimator {cfg.estimator!r}")
+
+
+def _nee_full(scene, cfg, accel, tri_to_light, si, ls, alive):
+    """The reference's MIS light strategy with occluder shading
+    (main.cpp:450-464): the light ray's nearest hit (K1 on CUDA tensors,
+    never culled) is shaded whatever it is. An emissive front hit adds its
+    radiance inline (the common case, equal to NEE); a non-emissive front
+    hit becomes a blocker chain, traced as a continuation path through the
+    queue. Returns (contrib [N,3], spawn [N], wl [N,3], w_chain [N,3] =
+    f cos / (p_light + p_brdf), the denominator detached)."""
+    wl, _, dist2, cos_x, cos_l = _shadow_ray(si, ls)
+    ok = alive & ls.valid & (cos_x > 0.0)
+    lh = ops_intersect.intersect(accel, si.p, wl, si.tri_id)
+    si2 = common.gather_interaction(scene, lh, wl, tri_to_light)
+    if cfg.light_sampler == LS_SPHERICAL:
+        p_light = ls.pdf
+    else:
+        p_light = common.area_pdf_to_solid_angle(ls.pdf, dist2, cos_l)
+    f, p_b = phong.eval_and_pdf_brdf(si.ns, wl, si.wo, si.kd, si.ks, si.ns_exp)
+    w_chain = f * (cos_x / torch.clamp(p_light + p_b, min=1e-20).detach())[:, None]
+    front = ok & lh.valid & si2.front
+    contrib = torch.where((front & si2.is_light)[:, None], w_chain * si2.emission,
+                          torch.zeros_like(w_chain))
+    return contrib, front & ~si2.is_light, wl, w_chain
+
+
+def chain_key(base_key: torch.Tensor, spp0: int = 0) -> torch.Tensor:
+    """The root of a launch's blocker-chain streams:
+    fold(fold(base, _CHAIN_TAG), spp0)."""
+    return rng.fold_in(rng.fold_in(base_key, _CHAIN_TAG), spp0)
+
+
+def lane_keys(base_key, sample, pixel, n_pix: int, spp0: int = 0, pixel_stride: int = 1,
+              pixel_offset: int = 0, chain_base=None) -> torch.Tensor:
+    """[C, 2] stream keys of the (sample, local pixel) each lane traces:
+    fold(fold(base, spp0 + sample // n_pix), global pixel id). With
+    ``chain_base`` (:func:`chain_key`; blocker mode), a negative sample is
+    chain -1 - sample and takes fold(chain_base, -1 - sample); the
+    division then uses 0 for it, as JAX's ``where(is_chain, 0, sample)``
+    does."""
+    real = sample if chain_base is None else torch.clamp(sample, min=0)
+    k = rng.fold_in(base_key, spp0 + torch.div(real, n_pix, rounding_mode="floor"))
+    k = rng.fold_in(k, pixel * pixel_stride + pixel_offset)
+    if chain_base is None:
+        return k
+    return torch.where((sample < 0)[:, None], rng.fold_in(chain_base, -1 - sample), k)
 
 
 #: Per-lane tensors of the loop state: what the lane sort permutes (JAX
@@ -179,7 +232,9 @@ def primary_prepass(
        as the uncached loop's depth 0;
     4. stably partition the survivors to the front (seed order is sample
        order), and shade only them: NEE or direct light with culled shadow
-       rays (K5 on CUDA), then the BRDF sample that becomes a seed.
+       rays (K5 on CUDA), then the BRDF sample that becomes a seed (with
+       ``ref_mis_weights``, its weight's denominator adds the light pdf
+       along it: K1 on the lights-only accel).
 
     Returns (seed_mode, seed_count, nrays_logical, nrays_physical):
     logical rays count the primary once per sample (comparable with the
@@ -196,6 +251,8 @@ def primary_prepass(
     table = light_spherical.light_table(scene)
     spherical = cfg.light_sampler == LS_SPHERICAL
     is_mis = cfg.estimator == EST_MIS
+    light_accel = (ops_intersect.build_light_accel(scene) if is_mis and cfg.ref_mis_weights
+                   else None)
     is_split = cfg.estimator == EST_SPLIT
     picks = (is_mis or is_split) and spherical
     cam = scene.camera
@@ -291,8 +348,12 @@ def primary_prepass(
                                    si_c.ks, si_c.ns_exp, branch_pdf_compat=cfg.branch_pdf_compat)
             cos_i = vm.dot(bs.wi, si_c.ns)
             cont = live & (cos_i > 0.0) & (bs.pdf > 1e-12)
+            pdf = bs.pdf
+            if light_accel is not None:
+                pdf = pdf + _light_pdf_along(scene, cfg, light_accel, tri_to_light, si_c, bs.wi,
+                                             wsum_c, table=table)
             f = phong.eval_brdf(si_c.ns, bs.wi, si_c.wo, si_c.kd, si_c.ks, si_c.ns_exp)
-            tp_next = f * (torch.clamp(cos_i, min=0.0) / torch.clamp(bs.pdf, min=1e-12)
+            tp_next = f * (torch.clamp(cos_i, min=0.0) / torch.clamp(pdf, min=1e-12)
                            * w_rr)[:, None]
             slot = torch.where(cont, count + torch.cumsum(cont.to(torch.int64), 0) - 1, total)
             seeds_sample[slot] = (r_ids * n_pix + pix_local[None, :]).reshape(S)[rows]
@@ -356,6 +417,7 @@ def render_regen(
     pixel_stride: int = 1,
     spp0: int = 0,
     seed_mode: SeedMode | None = None,
+    on_iter: Callable[[dict], None] | None = None,
 ):
     """Render ``total_samples`` paths distributed round-robin over
     ``n_pix`` local pixels (local pixel i is global pixel
@@ -368,9 +430,27 @@ def render_regen(
     the seed count and the framebuffer starts at the pre-pass's depth-0
     radiance.
 
+    With ``cfg.mis_blocker_compat`` (MIS) the loop also keeps the
+    blocker-chain queue: ``lanes + 1`` rows, the last one the sink of
+    spilled writes. Chains enqueued in an iteration are ranked by the
+    cumulative count of spawning lanes; free lanes then pull chains from the
+    top of the queue (last in, first out, from the buffers as this
+    iteration's enqueue left them) before new samples, and the loop runs
+    until no sample, live lane or queued chain is left. Chain ``k`` of the
+    launch has sample id ``-1 - k`` and draws from
+    fold(fold(fold(base, _CHAIN_TAG), spp0), k), disjoint from every real
+    stream.
+
+    ``on_iter(state)``, when given, sees the loop state (a dict of
+    tensors, the queue's included) before the first iteration and after
+    each one.
+
     Returns (framebuffer_sum [n_pix, 3] f32, logical rays traced (int64
     tensor: extension + shadow rays of live lanes), iterations, stats)."""
     _check_supported(cfg)
+    blocker = bool(cfg.mis_blocker_compat) and cfg.estimator == EST_MIS
+    if blocker and seed_mode is not None:
+        raise ValueError("the primary-hit cache excludes mis_blocker_compat")
     dev = scene.device
     base_key = base_key.to(dev)
     accel = ops_intersect.build_accel(scene)
@@ -378,6 +458,8 @@ def render_regen(
     consts = arvo_cuda.pack_consts(scene)
     table = light_spherical.light_table(scene)
     est = cfg.estimator
+    light_accel = (ops_intersect.build_light_accel(scene) if est == EST_MIS and cfg.ref_mis_weights
+                   else None)
     # accel="auto": in-loop culling and the lane sort from the triangle
     # count (JAX regen.py:717-722); an explicit ray_sort sorts either way.
     loop_cull, do_sort = False, cfg.ray_sort
@@ -392,11 +474,11 @@ def render_regen(
     C = int(lanes)
     w_rr = 1.0 / cfg.rr_prob
     lane_ids = torch.arange(C, dtype=torch.int64, device=dev)
+    chain_base = chain_key(base_key, spp0) if blocker else None
 
     def lane_stream(sample, pixel):
-        """fold(fold(base, spp0 + sample // n_pix), global pixel id)."""
-        k = rng.fold_in(base_key, spp0 + torch.div(sample, n_pix, rounding_mode="floor"))
-        return rng.fold_in(k, pixel * pixel_stride + pixel_offset)
+        return lane_keys(base_key, sample, pixel, n_pix, spp0, pixel_stride, pixel_offset,
+                         chain_base)
 
     def primary_rays(sample, pixel):
         """Camera rays of (sample, local pixel); the jitter draw, when on,
@@ -426,27 +508,48 @@ def render_regen(
     z_up = torch.zeros((C, 3), device=dev)
     z_up[:, 2] = 1.0
     zero = torch.zeros(C, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
     st = {
         "alive": torch.zeros(C, dtype=torch.bool, device=dev),
-        "pixel": torch.zeros(C, dtype=torch.int64, device=dev),
-        "sample": torch.zeros(C, dtype=torch.int64, device=dev),
-        "depth": torch.zeros(C, dtype=torch.int64, device=dev),
+        "pixel": torch.zeros(C, **i64), "sample": torch.zeros(C, **i64),
+        "depth": torch.zeros(C, **i64),
         "ro": zero3, "rd": z_up,
         "excl": torch.full((C,), ops_intersect.NO_HIT, dtype=torch.int32, device=dev),
         "tp": torch.ones((C, 3), device=dev), "L": zero3,
         "prev_pb": torch.ones(C, device=dev), "prev_p": zero3, "prev_ns": z_up,
         "prev_w": zero,
     }
-    counter = torch.zeros((), dtype=torch.int64, device=dev)
-    nrays = torch.zeros((), dtype=torch.int64, device=dev)
+    if blocker:
+        # The chain queue: C + 1 rows, row C the sink of spilled writes.
+        st.update({
+            "buf_ro": torch.zeros((C + 1, 3), device=dev),
+            "buf_rd": torch.zeros((C + 1, 3), device=dev),
+            "buf_tp": torch.zeros((C + 1, 3), device=dev),
+            "buf_pixel": torch.zeros(C + 1, **i64),
+            "buf_excl": torch.full((C + 1,), ops_intersect.NO_HIT, dtype=torch.int32,
+                                   device=dev),
+            "buf_sample": torch.zeros(C + 1, **i64),
+            "buf_depth": torch.zeros(C + 1, **i64),
+            "buf_count": torch.zeros((), **i64),
+            "chain_counter": torch.zeros((), **i64),
+            "spilled": torch.zeros((), **i64),
+        })
+    counter = torch.zeros((), **i64)
+    nrays = torch.zeros((), **i64)
     # Dead lanes write their pixel row, live lanes their own dummy row
     # n_pix + lane, which is dropped at the end.
     fb = torch.zeros((n_pix + C, 3), device=dev)
     if seed_mode is not None:
         fb[:n_pix] = seed_mode.fb_pre
     iters = 0
+    if on_iter is not None:
+        on_iter(st)
 
-    while bool((counter < total_samples) | st["alive"].any()):
+    def more():
+        m = (counter < total_samples) | st["alive"].any()
+        return bool(m | (st["buf_count"] > 0)) if blocker else bool(m)
+
+    while more():
         iters += 1
         if do_sort:
             st = sort_lanes(st, scene_lo, scene_inv)
@@ -461,18 +564,19 @@ def render_regen(
         cont = alive & hit.valid & si.front
 
         # Emission: full weight on primary hits; then MIS the balance
-        # heuristic, BRDF-only full weight, split none (its direct term
+        # heuristic (1 under ref_mis_weights, whose light pdf went into the
+        # throughput), BRDF-only full weight, split none (its direct term
         # owns the light).
-        if est == EST_MIS:
+        if est == EST_MIS and light_accel is None:
             p_l = _light_pdf_of_hit(scene, cfg, si, st["prev_p"], st["prev_ns"],
                                     st["prev_w"], table=table)
             pb = st["prev_pb"]
             w_emit = torch.where(depth == 0, torch.ones_like(pb),
                                  pb / torch.clamp(pb + p_l, min=1e-20))
-        elif est == EST_BRDF:
-            w_emit = torch.ones(C, device=dev)
-        else:
+        elif est == EST_SPLIT:
             w_emit = (depth == 0).to(torch.float32)
+        else:
+            w_emit = torch.ones(C, device=dev)
         is_emit = cont & si.is_light
         L = L + torch.where(is_emit[:, None], tp * si.emission * w_emit[:, None],
                             torch.zeros_like(L))
@@ -488,28 +592,41 @@ def render_regen(
             tp = torch.where(cont[:, None], tp * w_rr, tp)
             tp_rr = 1.0
 
-        # Light strategy (mis: NEE with the MIS weight) or direct term (split).
+        # Light strategy (mis: NEE with the MIS weight, or the reference's
+        # light ray with occluder chains) or direct term (split).
         if est in (EST_MIS, EST_SPLIT):
             ls, ws = _sample_light(rng.fold_in(lk_d, rng.P_LIGHT_SELECT), scene, cfg, si,
                                    consts=consts, table=table)
             nrays += cont.sum()
             if est == EST_MIS:
                 wsum = zero if ws is None else ws
-                L = L + tp * _nee_term(scene, cfg, accel, si, ls, wsum, cont, cull=loop_cull)
+                if blocker:
+                    nee, spawn, wl_sp, w_chain = _nee_full(scene, cfg, accel, tri_to_light, si,
+                                                           ls, cont)
+                    L = L + tp * nee
+                    chain_tp = tp * w_chain
+                else:
+                    L = L + tp * _nee_term(scene, cfg, accel, si, ls, wsum, cont,
+                                           cull=loop_cull)
             else:
                 L = L + tp * _direct_term(scene, cfg, accel, si, ls, cont)
         if est != EST_MIS:
             cont = cont & survive
 
-        # BRDF strategy: sample, weight, continue (main.cpp:471-491).
+        # BRDF strategy: sample, weight, continue (main.cpp:471-491); the
+        # reference's weighting adds the light pdf along wi (main.cpp:484-491).
         bs = phong.sample_brdf(
             rng.fold_in(lk_d, rng.P_BSDF), si.ns, si.wo, si.kd, si.ks, si.ns_exp,
             branch_pdf_compat=cfg.branch_pdf_compat,
         )
         cos_i = vm.dot(bs.wi, si.ns)
         cont = cont & (cos_i > 0.0) & (bs.pdf > 1e-12)
+        pdf = bs.pdf
+        if light_accel is not None:
+            pdf = pdf + _light_pdf_along(scene, cfg, light_accel, tri_to_light, si, bs.wi, wsum,
+                                         table=table)
         f = phong.eval_brdf(si.ns, bs.wi, si.wo, si.kd, si.ks, si.ns_exp)
-        scale = torch.clamp(cos_i, min=0.0) / torch.clamp(bs.pdf, min=1e-12) * tp_rr
+        scale = torch.clamp(cos_i, min=0.0) / torch.clamp(pdf, min=1e-12) * tp_rr
         tp = torch.where(cont[:, None], tp * f * scale[:, None], tp)
 
         # ---- scatter finished paths & regenerate ----
@@ -518,26 +635,71 @@ def render_regen(
         fb.index_add_(0, tgt, torch.where(died[:, None], L, torch.zeros_like(L)))
 
         free = died | ~alive
+        out = {}
+        if blocker:
+            # Enqueue this bounce's chains, ranked by the cumulative count
+            # of spawning lanes; those past the capacity C go to the sink.
+            rank_s = torch.cumsum(spawn.to(torch.int64), 0) - 1
+            slot = st["buf_count"] + rank_s
+            can = spawn & (slot < C)
+            idx_w = torch.where(can, slot, C)
+            for k, v in (("ro", si.p), ("rd", wl_sp), ("tp", chain_tp), ("pixel", st["pixel"]),
+                         ("excl", si.tri_id), ("sample", -1 - (st["chain_counter"] + rank_s)),
+                         ("depth", depth + 1)):
+                buf = st["buf_" + k].clone()
+                buf[idx_w] = v
+                out["buf_" + k] = buf
+            n_spawn = can.sum()
+            buf_count = st["buf_count"] + n_spawn
+            out["chain_counter"] = st["chain_counter"] + n_spawn
+            out["spilled"] = st["spilled"] + (spawn & ~can).sum()
+
         rank = torch.cumsum(free.to(torch.int64), 0) - 1
+        if blocker:
+            # Dequeue: free lanes pull queued chains (LIFO) first, from the
+            # buffers after this iteration's enqueue.
+            take_chain = free & (rank < buf_count)
+            src = torch.clamp(buf_count - 1 - rank, 0, C)
+            rank = rank - buf_count
+            out["buf_count"] = buf_count - take_chain.sum()
         take = free & (rank < total_samples - counter)
+        if blocker:
+            take = take & ~take_chain
         pixel_new, sample_new, depth_new, ro_new, rd_new, ns_new, excl_new, tp_new, pb_new, \
             wsum_new = pull(counter + rank)
+
+        def sel(new, queued, cur):
+            """take -> new sample, take_chain -> queued chain, else cur."""
+            tk = take if cur.dim() == 1 else take[:, None]
+            if blocker:
+                tc = take_chain if cur.dim() == 1 else take_chain[:, None]
+                cur = torch.where(tc, out["buf_" + queued][src], cur)
+            return torch.where(tk, new, cur)
+
         t1 = take[:, None]
+        restart = take if not blocker else take | take_chain
         st = {
-            "alive": cont | take,
-            "pixel": torch.where(take, pixel_new, st["pixel"]),
-            "sample": torch.where(take, sample_new, st["sample"]),
-            "depth": torch.where(take, depth_new, depth + 1),
-            "ro": torch.where(t1, ro_new, si.p),
-            "rd": torch.where(t1, rd_new, bs.wi),
-            "excl": torch.where(take, excl_new, hit.tri_id),
-            "tp": torch.where(t1, tp_new, tp),
-            "L": torch.where(t1, 0.0, L),
+            **out,
+            "alive": cont | restart,
+            "pixel": sel(pixel_new, "pixel", st["pixel"]),
+            "sample": sel(sample_new, "sample", st["sample"]),
+            "depth": sel(depth_new, "depth", depth + 1),
+            "ro": sel(ro_new, "ro", si.p),
+            "rd": sel(rd_new, "rd", bs.wi),
+            "excl": sel(excl_new, "excl", hit.tri_id),
+            "tp": sel(tp_new, "tp", tp),
+            "L": torch.where(restart[:, None], 0.0, L),
+            # prev_* feed the balance heuristic, which the blocker queue
+            # (ref_mis_weights) never reads: chains keep stale values.
             "prev_pb": torch.where(take, pb_new, bs.pdf),
             "prev_p": torch.where(t1, ro_new, si.p),
             "prev_ns": torch.where(t1, ns_new, si.ns),
             "prev_w": torch.where(take, wsum_new, wsum),
         }
         counter = counter + take.sum()
+        if on_iter is not None:
+            on_iter(st)
 
-    return fb[:n_pix], nrays, iters, RegenStats()
+    stats = (RegenStats(spilled=int(st["spilled"]), chains=int(st["chain_counter"])) if blocker
+             else RegenStats())
+    return fb[:n_pix], nrays, iters, stats

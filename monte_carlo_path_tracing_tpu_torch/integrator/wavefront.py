@@ -17,7 +17,15 @@ CUDA tensors, their plain versions on CPU tensors; nothing here culls.
 
 MIS is the restructured next-event estimation of the JAX package (quirk
 Q11): an unoccluded light ray contributes its emission, an occluded one
-nothing, and the BRDF continuation divides by the BRDF pdf alone.
+nothing, and the BRDF continuation divides by the BRDF pdf alone. With
+``cfg.ref_mis_weights`` the reference's weighting is reproduced instead:
+each continuation's denominator adds the sampler pdf of the nearest light
+triangle along the ray (closet_ray_intersect_light_triangle,
+Myobj.cpp:476-622), traced against a lights-only accel (K1 on CUDA
+tensors), and emission counts with weight 1. The occluded-blocker
+recursion (``mis_blocker_compat``) belongs to the regeneration renderer.
+``estimator="shoot"`` dispatches to ``integrator/legacy_shoot.py``;
+``cfg.accel == "grid"`` traces through the uniform grid (``ops/grid.py``).
 
 Differentiability: gradients flow through BRDF values, emission, cosines
 and MIS weights into the material table; discrete events (lobe and
@@ -37,18 +45,13 @@ import torch
 
 from monte_carlo_path_tracing_tpu_torch.core import rng, vecmath as vm
 from monte_carlo_path_tracing_tpu_torch.integrator import common
-from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda
+from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda, grid as grid_mod
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.sampling import light_spherical, light_uniform, phong
 from monte_carlo_path_tracing_tpu_torch.scene.types import Scene
 from monte_carlo_path_tracing_tpu_torch.utils.config import (
     EST_BRDF, EST_MIS, EST_SHOOT, EST_SPLIT, LS_SPHERICAL, LS_UNIFORM_AREA, RenderConfig,
 )
-
-#: Where the options the port does not run yet are queued: by title, so
-#: that a renumbering of ROADMAP.md leaves the messages true.
-COMPAT_ITEM = 'ROADMAP queue 1, "Compat and accel extras"'
-
 
 def render_rays(scene: Scene, cfg: RenderConfig, key: torch.Tensor, ro: torch.Tensor,
                 rd: torch.Tensor, with_stats: bool = False, accel=None, row_offset: int = 0):
@@ -63,26 +66,38 @@ def render_rays(scene: Scene, cfg: RenderConfig, key: torch.Tensor, ro: torch.Te
     ``with_stats=True`` also returns {"rays": int64 tensor, the extension
     and shadow rays of lanes live at each trace; "nonfinite": lanes whose
     radiance is not finite}. ``accel`` injects a prebuilt
-    ``ops.intersect.TriAccel``. Differentiable in the scene's materials."""
+    ``ops.intersect.TriAccel`` or ``ops.grid.GridAccel``; without one, a
+    grid is built when ``cfg.accel == "grid"``. Differentiable in the
+    scene's materials, except through a grid (ValueError, as JAX's
+    reverse mode refuses its loop)."""
     if cfg.mis_blocker_compat:
         raise NotImplementedError(
             "mis_blocker_compat (the reference's occluded-blocker recursion) "
             "is a work-queue feature of the regeneration renderer — use "
             "render_image_regen / integrator.regen.render_regen"
         )
-    todo = [
-        (cfg.estimator == EST_SHOOT, "estimator 'shoot' (integrator/legacy_shoot.py)"),
-        (cfg.ref_mis_weights, "ref_mis_weights light-accel MIS"),
-        (cfg.accel == "grid", "accel='grid'"),
-    ]
-    for bad, what in todo:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what} ({COMPAT_ITEM})")
+    if cfg.estimator == EST_SHOOT:
+        # The legacy C17 estimator (dead code in the reference) has its own
+        # module and its own accel.
+        from monte_carlo_path_tracing_tpu_torch.integrator import legacy_shoot
+
+        L, stats = legacy_shoot.render_rays_shoot(scene, cfg, key.to(ro.device), ro, rd,
+                                                  with_stats=True, row_offset=row_offset)
+        if with_stats:
+            return L, {"rays": stats["rays"], "nonfinite": (~torch.isfinite(L).all(dim=-1)).sum()}
+        return L
     runs = {EST_BRDF: _run_brdf, EST_SPLIT: _run_split, EST_MIS: _run_mis}
     if cfg.estimator not in runs:
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if accel is None:
-        accel = ops_intersect.build_accel(scene)
+        accel = (grid_mod.build_grid(scene, n0=cfg.grid_n0) if cfg.accel == "grid"
+                 else ops_intersect.build_accel(scene))
+    m = scene.materials
+    if isinstance(accel, grid_mod.GridAccel) and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (m.kd, m.ks, m.ns, m.emission)):
+        # JAX's grid is a lax.while_loop, which reverse mode refuses.
+        raise ValueError("reverse-mode differentiation does not run through the grid's "
+                         "3D-DDA loop, as in the JAX package: use accel 'auto' or 'all_pairs'")
     L, nrays = runs[cfg.estimator](scene, cfg, accel, common.light_index_table(scene),
                                    key.to(ro.device), ro, rd, row_offset)
     nonfinite = (~torch.isfinite(L).all(dim=-1)).sum()
@@ -108,16 +123,18 @@ def _init(ro):
             torch.zeros((), dtype=torch.int64, device=dev))
 
 
-def _brdf_step(cfg, key, d, si, alive, tp, w_rr=1.0, row_offset=0):
+def _brdf_step(cfg, key, d, si, alive, tp, w_rr=1.0, row_offset=0, pdf_along=None):
     """Sample the BRDF continuation and weight the throughput: (bs, alive,
-    tp). The pdf in the denominator is detached."""
+    tp). The denominator is the BRDF pdf, plus ``pdf_along(wi)`` where
+    given (ref_mis_weights), and is detached."""
     bs = phong.sample_brdf(rng.bounce_key(key, d, rng.P_BSDF), si.ns, si.wo, si.kd, si.ks,
                            si.ns_exp, branch_pdf_compat=cfg.branch_pdf_compat,
                            row_offset=row_offset)
     cos_i = vm.dot(bs.wi, si.ns)
     alive = alive & (cos_i > 0.0) & (bs.pdf > 1e-12)
+    pdf = bs.pdf if pdf_along is None else bs.pdf + pdf_along(bs.wi)
     f = phong.eval_brdf(si.ns, bs.wi, si.wo, si.kd, si.ks, si.ns_exp)
-    scale = torch.clamp(cos_i, min=0.0) / torch.clamp(bs.pdf, min=1e-12).detach() * w_rr
+    scale = torch.clamp(cos_i, min=0.0) / torch.clamp(pdf, min=1e-12).detach() * w_rr
     return bs, alive, torch.where(alive[:, None], tp * f * scale[:, None], tp)
 
 
@@ -168,6 +185,33 @@ def _light_pdf_of_hit(scene, cfg, si, prev_p, prev_ns, prev_wsum, table=None):
     cos_l = -vm.dot(wl, si.ng)   # the hit triangle's vote-oriented normal
     pdf = common.area_pdf_to_solid_angle(pdf_a, dist2, cos_l)
     return torch.where(si.light_idx >= 0, pdf, torch.zeros_like(pdf))
+
+
+def _light_pdf_along(scene, cfg, light_accel, tri_to_light, si, wi, wsum, table=None,
+                     via_point=False):
+    """ref_mis_weights (quirk Q11, main.cpp:484-491): the solid-angle pdf
+    with which the light sampler at ``si`` would pick the nearest light
+    triangle along ``wi`` (closet_ray_intersect_light_triangle,
+    Myobj.cpp:476-622), traced against the lights-only accel with ``si``'s
+    triangle excluded (K1 on CUDA tensors); 0 where the ray meets no light.
+    The uniform sampler's squared distance is each JAX call site's own:
+    |(p + t wi) - p|^2 in the fixed-depth MIS (``via_point``), t^2 in the
+    regen loop and the prepass."""
+    lh = _trace(light_accel, si.p, wi, si.tri_id)
+    tri = torch.clamp(lh.tri_id, min=0).long()
+    lidx = torch.where(lh.valid, tri_to_light[tri], torch.full_like(lh.tri_id, -1))
+    if cfg.light_sampler == LS_SPHERICAL:
+        return light_spherical.pdf_of_tri(scene, si.p, si.ns, lidx, wsum, table=table)
+    if via_point:
+        dp = (si.p + lh.t[:, None] * wi) - si.p
+        d2 = vm.dot(dp, dp)
+    else:
+        d2 = lh.t * lh.t
+    d2 = torch.clamp(d2, min=1e-20)
+    pdf = common.area_pdf_to_solid_angle(
+        light_uniform.pdf_area(scene, torch.clamp(lidx, min=0)), d2,
+        -vm.dot(wi, scene.geo_n[tri]))
+    return torch.where(lh.valid, pdf, torch.zeros_like(pdf))
 
 
 def _shadow_ray(si, ls):
@@ -283,6 +327,7 @@ def _run_mis(scene, cfg, accel, tri_to_light, key, ro, rd, r0):
     N = ro.shape[0]
     spherical = cfg.light_sampler == LS_SPHERICAL
     consts, table = _light_tables(scene, cfg)
+    light_accel = ops_intersect.build_light_accel(scene) if cfg.ref_mis_weights else None
     active, excl, tp, L, nrays = _init(ro)
     prev_pb, prev_p, prev_ns = torch.ones(N, device=ro.device), ro, rd
     prev_wsum = torch.zeros(N, device=ro.device)
@@ -295,9 +340,11 @@ def _run_mis(scene, cfg, accel, tri_to_light, key, ro, rd, r0):
         alive = active & hit.valid & si.front            # backface => 0 (main.cpp:410-413)
 
         # Emissive hit: primary rays get the full emission (main.cpp:416-421),
-        # BRDF-continued ones the balance-heuristic weight p_b / (p_b + p_light).
+        # BRDF-continued ones the balance-heuristic weight p_b / (p_b + p_light),
+        # unless ref_mis_weights already put the light pdf into the
+        # throughput at the previous vertex.
         is_emit = alive & si.is_light
-        if d > 0:
+        if d > 0 and light_accel is None:
             p_l = _light_pdf_of_hit(scene, cfg, si, prev_p, prev_ns, prev_wsum, table=table)
             w_emit = prev_pb / torch.clamp(prev_pb + p_l, min=1e-20).detach()
         else:
@@ -322,8 +369,13 @@ def _run_mis(scene, cfg, accel, tri_to_light, key, ro, rd, r0):
         nrays = nrays + alive.sum()                      # shadow rays
         L = L + tp * _nee_term(scene, cfg, accel, si, ls, wsum, alive)
 
-        # BRDF strategy: sample, weight, continue (main.cpp:471-491).
-        bs, alive, tp = _brdf_step(cfg, key, d, si, alive, tp, row_offset=r0)
+        # BRDF strategy: sample, weight, continue (main.cpp:471-491); the
+        # reference's weighting adds the light pdf along wi (main.cpp:484-491).
+        along = None
+        if light_accel is not None:
+            along = lambda wi: _light_pdf_along(  # noqa: E731
+                scene, cfg, light_accel, tri_to_light, si, wi, wsum, table=table, via_point=True)
+        bs, alive, tp = _brdf_step(cfg, key, d, si, alive, tp, row_offset=r0, pdf_along=along)
         active, ro, rd, excl = alive, si.p, bs.wi, hit.tri_id
         prev_pb, prev_p, prev_ns, prev_wsum = bs.pdf.detach(), si.p, si.ns, wsum
     return L, nrays

@@ -12,8 +12,11 @@ shadow batches, and the regeneration loop's sorted lanes where
 :func:`auto_policy` turns culling on) — kernels for CUDA tensors, their
 plain torch versions for CPU tensors.
 
-Not ported yet (ROADMAP queue 1, "Compat and accel extras"): the
-lights-only accel and the uniform grid.
+A second, lights-only accel (:func:`build_light_accel`) serves the
+reference's closet_ray_intersect_light_triangle (Myobj.cpp:476-622) under
+``ref_mis_weights`` (quirk Q11): K1 on the light triangles alone. A
+``GridAccel`` (``ops/grid.py``, the reference's uniform grid) takes its
+3D-DDA instead of the kernels.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import NamedTuple
 
 import torch
 
+from monte_carlo_path_tracing_tpu_torch.ops import grid as grid_mod
 from monte_carlo_path_tracing_tpu_torch.ops import intersect_cuda
 from monte_carlo_path_tracing_tpu_torch.ops.intersect_ref import (  # noqa: F401
     BIG_T, NO_HIT, T_EPS, Hit, pack_tri_matrix, ray_features,
@@ -126,6 +130,15 @@ def build_accel(scene: Scene, block: int = TRI_BLOCK) -> TriAccel:
     return _build(scene.tri_v0, scene.tri_e1, scene.tri_e2, ids, block)
 
 
+def build_light_accel(scene: Scene, block: int = TRI_BLOCK) -> TriAccel:
+    """Accel of the emissive triangles alone; its ids stay global triangle
+    ids, and ``num_tris`` is the light count, so that ``real_rows()`` hands
+    K1 the light triangles only."""
+    sel = scene.light_tri_ids.to(torch.int32)
+    idx = sel.long()
+    return _build(scene.tri_v0[idx], scene.tri_e1[idx], scene.tri_e2[idx], sel, block)
+
+
 def _exclude(exclude_id, n, device):
     if exclude_id is None:
         return torch.full((n,), NO_HIT, dtype=torch.int32, device=device)
@@ -210,7 +223,10 @@ def intersect(
     intersection avoidance by triangle-id exclusion (quirk Q8). ``cull=True``
     runs K4 on tiles of ``intersect_cuda.RAY_TILE`` rays — for coherent
     batches such as camera fans; above ``CULL_CHUNK_TRIS`` triangles per chunk,
-    with the chunks' hits min-composed."""
+    with the chunks' hits min-composed. A ``GridAccel`` takes the grid's
+    3D-DDA (``ops/grid.py``)."""
+    if isinstance(accel, grid_mod.GridAccel):
+        return grid_mod.intersect_grid(accel, ro, rd, exclude_id, t_eps=t_eps)
     N = ro.shape[0]
     excl = _exclude(exclude_id, N, ro.device)
     if not cull or accel.aabb_lo is None:
@@ -243,7 +259,11 @@ def occluded(
     NEE visibility predicate, with ``OCCLUSION_MARGIN``). ``cull=True`` runs
     K5 on tiles of ``intersect_cuda.RAY_TILE`` rays (coherent shadow
     batches), the swept interval of each tile capped by its largest t_max;
-    chunks above ``CULL_CHUNK_TRIS`` are ORed."""
+    chunks above ``CULL_CHUNK_TRIS`` are ORed. A ``GridAccel`` tests the
+    grid's nearest hit against the same margin."""
+    if isinstance(accel, grid_mod.GridAccel):
+        hit = grid_mod.intersect_grid(accel, ro, rd, exclude_id, t_eps=t_eps)
+        return hit.valid & (hit.t < t_max * (1.0 - OCCLUSION_MARGIN))
     N = ro.shape[0]
     excl = _exclude(exclude_id, N, ro.device)
     scaled = (t_max * (1.0 - OCCLUSION_MARGIN)).to(torch.float32).contiguous()

@@ -20,6 +20,7 @@ import torch
 
 from monte_carlo_path_tracing_tpu_torch.core import rng
 from monte_carlo_path_tracing_tpu_torch.integrator import render_rays
+from monte_carlo_path_tracing_tpu_torch.ops import grid as grid_mod
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.render.camera import generate_rays
 from monte_carlo_path_tracing_tpu_torch.scene.types import Scene
@@ -67,7 +68,9 @@ def render_image_regen(
     and one Arvo prepare per pixel and launch, then the loop over the
     continuation seeds) whenever ``primary_cache_eligible(cfg)`` holds, and
     the uncached loop otherwise; True / False force either. Both compute
-    the same estimate from the same streams. A warm-up launch runs before
+    the same estimate from the same streams. Blocker chains dropped on a
+    full queue (``mis_blocker_compat``) are summed over the launches and
+    reported with a warning, as in the JAX package. A warm-up launch runs before
     the clock starts, as in the JAX package: 0 spp rounds cached (the
     prepass's camera trace), ``min(lanes, total)`` samples uncached; it
     touches no state of the render. Each timed launch ends with the
@@ -96,23 +99,28 @@ def render_image_regen(
     t0 = time.perf_counter()
     fb_acc = np.zeros((n_pix, 3), np.float32)
     rays = 0
+    spilled = 0
     done = 0
     while done < cfg.spp:
         step = min(spp_per_launch, cfg.spp - done)
         if use_cache:
-            fb, nrays, _, _ = render_regen_cached(
+            fb, nrays, _, stats = render_regen_cached(
                 scene, cfg, key, n_pix, spp_per_launch, step, lanes=lanes, spp0=done
             )
         else:
-            fb, nrays, _, _ = render_regen(
+            fb, nrays, _, stats = render_regen(
                 scene, cfg, key, n_pix, n_pix * step, lanes=lanes, spp0=done
             )
+        spilled += stats.spilled
         fb_acc += fb.cpu().numpy()
         rays += int(nrays)
         done += step
         if on_launch is not None:
             on_launch((fb_acc / done).reshape(cam.height, cam.width, 3), done)
     seconds = time.perf_counter() - t0
+    if spilled:
+        # Those chains fell back to the restructured estimator: surfaced.
+        print(f"[regen] WARNING: {spilled} blocker chains spilled", flush=True)
     image = (fb_acc / cfg.spp).reshape(cam.height, cam.width, 3)
     return RenderResult(image=image, spp_done=cfg.spp, seconds=seconds, rays_traced=rays)
 
@@ -128,7 +136,9 @@ def render_image(
     ``render_rays``, resuming from ``start_spp`` when a framebuffer of summed
     radiance [H, W, 3] is given; ``progress(s, spp)`` fires after each
     sample. The last chunk is padded with pixel 0, whose extra radiance is
-    dropped. Forward only (autograd off); ``diff.grad`` differentiates."""
+    dropped. The accel is built once per call: the uniform grid when
+    ``cfg.accel == "grid"`` (a host build), else the triangle accel.
+    Forward only (autograd off); ``diff.grad`` differentiates."""
     cfg.validate()
     cam = scene.camera
     h, w = cam.height, cam.width
@@ -140,7 +150,8 @@ def render_image(
     pad = (-n_pix) % chunk
     idx_all = torch.arange(n_pix + pad, dtype=torch.int64, device=scene.device)
     idx_all[n_pix:] = 0                  # padded lanes recompute pixel 0
-    accel = ops_intersect.build_accel(scene)
+    accel = (grid_mod.build_grid(scene, n0=cfg.grid_n0) if cfg.accel == "grid"
+             else ops_intersect.build_accel(scene))
 
     t0 = time.perf_counter()
     with torch.no_grad():

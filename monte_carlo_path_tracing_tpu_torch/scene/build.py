@@ -119,8 +119,14 @@ def build_scene(
 
 def load_scene(obj_path: str, xml_path: Optional[str] = None, **kw) -> Scene:
     """Load a cg23 scene: ``<name>.obj`` (+``.mtl`` via mtllib) +
-    ``<name>.xml``, with the pure-Python parser, onto the card; ``device=``
-    places it elsewhere (``device="cpu"``)."""
+    ``<name>.xml``, onto the card; ``device=`` places it elsewhere
+    (``device="cpu"``). The OBJ is parsed by the native library
+    (``native/libmcpt_loader.so`` through ctypes) when it is built, else in
+    Python, as in the JAX package."""
+    from monte_carlo_path_tracing_tpu_torch.scene import native_loader
+
     if xml_path is None:
         xml_path = os.path.splitext(obj_path)[0] + ".xml"
-    return build_scene(parse_obj(obj_path), parse_scene_xml(xml_path), **kw)
+    mesh = (native_loader.parse_obj_native(obj_path) if native_loader.native_available()
+            else parse_obj(obj_path))
+    return build_scene(mesh, parse_scene_xml(xml_path), **kw)

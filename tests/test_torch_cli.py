@@ -139,6 +139,21 @@ def test_last_line_keys_match_jax_cli(capsys):
         assert rc == 0 and sorted(json.loads(lines[-1])) == sorted(want), cmd
 
 
+def _outcome(main, capsys, argv):
+    """What ``main(argv)`` does, as a shell would see it: ("rc", exit code,
+    sorted keys of the last-line JSON) or ("raises", exception type)."""
+    try:
+        rc = main(argv)
+    except Exception as e:  # noqa: BLE001  (the CLI lets errors propagate)
+        capsys.readouterr()
+        return ("raises", type(e).__name__)
+    lines = capsys.readouterr().out.strip().splitlines()
+    keys = sorted(json.loads(lines[-1])) if rc == 0 else None
+    return ("rc", rc, keys)
+
+
+#: The flags of the reference-parity options, once refused by the port as
+#: "Compat and accel extras" and now run: each case's id is kept.
 @pytest.mark.parametrize("flags,item", [
     (["--estimator", "shoot"], "Compat and accel extras"),
     (["--accel", "grid"], "Compat and accel extras"),
@@ -151,8 +166,21 @@ def test_last_line_keys_match_jax_cli(capsys):
 ])
 @pytest.mark.parametrize("cmd", ["render", "inverse"])
 def test_refused_flags_name_their_roadmap_item(capsys, cmd, flags, item):
-    rc, _, err = _run(capsys, [cmd, SCENE, "--cpu"] + flags)
-    assert rc != 0 and "ROADMAP" in err and item in err, err
+    """The TPU-only flags ("Do not port") exit non-zero naming their ROADMAP
+    item. The reference-parity flags run, and the port's outcome equals the
+    JAX CLI's: exit code and last-line keys, or the same exception where
+    the JAX CLI fails (inverse --ref-mis-full: the blocker queue is a regen
+    feature; inverse --accel grid: no gradient through the grid's loop)."""
+    if item == "Do not port":
+        rc, _, err = _run(capsys, [cmd, SCENE, "--cpu"] + flags)
+        assert rc != 0 and "ROADMAP" in err and item in err, err
+        return
+    argv = [cmd, SCENE, "--width", "4", "--height", "4", "--max-depth", "2", "--cpu"] + flags
+    argv += (["--spp", "1", "--lanes", "64"] if cmd == "render"
+             else ["--steps", "1", "--rays-per-step", "8"])
+    want = _outcome(jax_cli.main, capsys, argv)
+    got = _outcome(cli.main, capsys, argv)
+    assert got == want, (got, want)
 
 
 def test_fused_arvo_needs_the_card(capsys):

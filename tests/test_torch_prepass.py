@@ -198,11 +198,7 @@ def test_routes_to_the_cache_as_jax_does(cornell_scene, monkeypatch, change):
     real = regen.render_regen_cached
     monkeypatch.setattr(regen, "render_regen_cached",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
-    if change.get("mis_blocker_compat"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render_image_regen(ts, RenderConfig(**kw), lanes=32)
-    else:
-        render_image_regen(ts, RenderConfig(**kw), lanes=32)
+    render_image_regen(ts, RenderConfig(**kw), lanes=32)
     assert bool(calls) == want
 
 
