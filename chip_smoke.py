@@ -34,6 +34,14 @@ exits non-zero without printing a result:
 6. end to end, cached (the main path): the same render with the default
    ``primary_cache``, which routes to the primary-hit cache; all five
    kernels must launch; checksum and ray count held as in 5;
+6b. profile: the same render at 1 spp (cut for the trace's size), first
+   untraced, then traced through ``utils.profiling.device_trace`` into
+   ``build/trace/``: the device's busy share over the traced window (the
+   union of kernel and copy intervals), the top device ops by time, the
+   idle gaps (their distribution, and the longest with the host op open
+   in each), K1-K5 found in the trace by their ``__global__`` names at
+   counts equal to the wrappers' counters, and the image against the
+   untraced one (summation order only);
 7. two devices: the same entry point renders Veach at 64^2, 4 spp on the
    card and on the CPU, uncached and cached; ray counts and images agree;
 8. end to end, fixed depth (the CLI's default render and the gradient
@@ -109,7 +117,9 @@ bathroom's auto render and, on its recorded loop batch, ``loop_ms``,
 ``loop_k1_ms`` / ``loop_k2_ms`` and ``loop_bound_ms``; every kernel
 ``launches_sharded``, its launches in each rank of phase 13's sharded
 render; ``launches_ref_mis`` and ``launches_blocker``, its launches in
-phase 14's ref-MIS cached render and blocker render; K1 also
+phase 14's ref-MIS cached render and blocker render; ``launches_traced``
+and ``trace_ms_total``, its launches and summed kernel time in phase 6b's
+trace; K1 also
 ``light_accel``, its times on the lights-only accels, and ``grid_fan``,
 the grid's and K1's times on the camera fan), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -259,6 +269,25 @@ RENDEZVOUS_S, RANK_S = 120, 600
 #: estimator on cornell SHOOT_RES^2 x 1 spp, card against CPU at
 #: SHOOT_CPU_RES^2; (d) render_image with the grid on cornell GRID_RES^2
 #: (grid_n0 GRID_N0_CORNELL, as JAX tests/test_grid.py:134 builds it).
+#: Phase "profile": the cached main path at PROFILE_SPP spp (cut from SPP:
+#: at 8 spp a render is ~107 iterations x ~5,700 launches, ~600k kernel
+#: events; 1 spp keeps the trace near 100k) through
+#: utils/profiling.device_trace, written under TRACE_DIR; its image against
+#: the untraced render run just before it (index_add_ sums in another
+#: order: the CLI phase's rtol / atol); the PROFILE_TOP device ops by time
+#: and the PROFILE_GAPS longest idle gaps.
+PROFILE_SPP, PROFILE_TOP, PROFILE_GAPS = 1, 10, 5
+TRACE_DIR = os.path.join(ROOT, "build", "trace")
+#: The __global__ name of each kernel (csrc/intersect.cu:337, :433, :545,
+#: :605; csrc/arvo.cu:143), found in the trace's kernel names as a
+#: substring (no name is a substring of another).
+KERNEL_SYMBOLS = {
+    "K1 nearest_hit": "nearest_kernel",
+    "K2 occluded": "occluded_kernel",
+    "K3 arvo_select": "arvo_select_kernel",
+    "K4 nearest_hit_culled": "nearest_culled_kernel",
+    "K5 occluded_culled": "occluded_culled_kernel",
+}
 COMPAT_SMALL, COMPAT_CACHE_GAP = 512, 1e-4
 BLOCKER_SPP, BLOCKER_CPU_RES = 2, 32
 SHOOT_RES, SHOOT_CPU_RES = 256, 32
@@ -885,6 +914,133 @@ def phase_gradient(scene_cpu):
         f"forward {t_fwd:.3f} s, forward + backward {t_grad:.3f} s, peak memory above the "
         f"scene {peak / 2**20:.1f} MiB; gradients finite {finite}; launches {launches}")
     assert finite, "non-finite gradient on the full chunk"
+
+
+def read_trace(path):
+    """The complete ("X") events of a Chrome trace written by device_trace:
+    device work (kernels, copies, fills) and host ops (operators, runtime
+    and driver calls), each as (names, start us, end us) arrays."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+
+    def pick(cats):
+        sel = [e for e in events if e.get("ph") == "X" and e.get("cat") in cats]
+        ts = np.array([float(e["ts"]) for e in sel])
+        return ([e["name"] for e in sel], ts, ts + np.array([float(e.get("dur", 0.0))
+                                                            for e in sel]))
+
+    kernels = pick(("kernel",))
+    device = pick(("kernel", "gpu_memcpy", "gpu_memset"))
+    host = pick(("cpu_op", "cuda_runtime", "cuda_driver"))
+    return kernels, device, host
+
+
+def busy_intervals(start, end):
+    """The union of [start, end) intervals as sorted disjoint (starts, ends)."""
+    order = np.argsort(start, kind="stable")
+    s, e = start[order], np.maximum.accumulate(end[order])
+    first = np.ones(len(s), bool)
+    first[1:] = s[1:] > e[:-1]
+    idx = np.flatnonzero(first)
+    return s[idx], e[np.r_[idx[1:] - 1, len(s) - 1]]
+
+
+def host_op_at(host, t):
+    """The innermost host op open at time t (the latest to start of those
+    whose interval holds t), and the outermost; None where none is open."""
+    names, hs, he = host
+    open_ = np.flatnonzero((hs <= t) & (he > t))
+    if open_.size == 0:
+        return None, None
+    return names[open_[np.argmax(hs[open_])]], names[open_[np.argmin(hs[open_])]]
+
+
+def phase_profile(scene):
+    """Phase "profile": the cached main path traced through the port's
+    ``utils.profiling.device_trace`` (prepass with K4 / K5, loop with
+    K1-K3), after the same render untraced: the device's busy share, the
+    top device ops, the longest idle gaps and the host op open in each,
+    and K1-K5's launches in the trace against the wrappers' counters."""
+    from monte_carlo_path_tracing_tpu_torch.utils.profiling import device_trace
+
+    cfg = main_cfg().replace(spp=PROFILE_SPP)
+    log(f"[profile] veach {RES}^2 x {PROFILE_SPP} spp (cut from {SPP} spp for the trace's "
+        f"size), cached, {LANES_CACHED} lanes, depth 16, traced under {TRACE_DIR}")
+    t0 = time.perf_counter()
+    plain = render_image_regen(scene, cfg, lanes=LANES_CACHED)
+    wall_plain = time.perf_counter() - t0
+    reset_counters()
+    t0 = time.perf_counter()
+    with device_trace(TRACE_DIR) as prof:
+        res = render_image_regen(scene, cfg, lanes=LANES_CACHED)
+        wall_traced = time.perf_counter() - t0
+    launches = counters()
+    t1 = time.perf_counter()
+    kernels, device, host = read_trace(prof.trace_path)
+    read_s = time.perf_counter() - t1
+    mib = os.path.getsize(prof.trace_path) / 2**20
+    log(f"[profile] untraced: wall {wall_plain:.3f} s (render seconds {plain.seconds:.3f}); "
+        f"traced: wall {wall_traced:.3f} s (render seconds {res.seconds:.3f}); trace stop and "
+        f"export {t1 - t0 - wall_traced:.1f} s, read {read_s:.1f} s; {prof.trace_path}: "
+        f"{mib:.1f} MiB, {len(kernels[0])} kernels, {len(device[0])} device events, "
+        f"{len(host[0])} host ops")
+
+    assert res.rays_traced == plain.rays_traced, \
+        f"traced rays {res.rays_traced} vs untraced {plain.rays_traced}"
+    gap = float(res.image.astype(np.float64).sum() / plain.image.astype(np.float64).sum() - 1.0)
+    assert np.allclose(res.image, plain.image, rtol=CLI_RTOL, atol=CLI_ATOL) and \
+        abs(gap) <= CLI_RTOL, f"traced image against untraced: checksum gap {gap:+.3e}"
+
+    w0 = min(device[1].min(), host[1].min())
+    w1 = max(device[2].max(), host[2].max())
+    window = w1 - w0
+    bs, be = busy_intervals(device[1], device[2])
+    busy = float((be - bs).sum())
+    share = busy / window
+    assert 0.0 < share <= 1.0, f"busy share {share}"
+    log(f"[profile] traced window {window / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms: busy "
+        f"share {share:.4f} (a lower bound: CUPTI adds host time to every launch of a "
+        f"host-bound loop); device busy over the untraced wall {busy / 1e6 / wall_plain:.4f}")
+
+    d_names, d_s, d_e = device
+    uniq, inv = np.unique(np.array(d_names, dtype=object), return_inverse=True)
+    tot = np.bincount(inv, weights=d_e - d_s)
+    cnt = np.bincount(inv)
+    log(f"[profile] top {PROFILE_TOP} device ops by time (of {tot.sum() / 1e3:.1f} ms in "
+        f"{len(uniq)} names):")
+    for i in np.argsort(-tot)[:PROFILE_TOP]:
+        log(f"[profile]   {tot[i] / 1e3:9.2f} ms {tot[i] / busy:6.1%} {cnt[i]:7d} x "
+            f"{tot[i] / cnt[i]:8.2f} us  {str(uniq[i])[:110]}")
+
+    gs = np.r_[w0, be]
+    ge = np.r_[bs, w1]
+    gl = ge - gs
+    log(f"[profile] idle {gl.sum() / 1e3:.1f} ms in {len(gl)} gaps: median "
+        f"{np.median(gl):.1f} us, 99th percentile {np.percentile(gl, 99):.1f} us; gaps under "
+        f"100 us hold {gl[gl < 100].sum() / gl.sum():.3f} of the idle time, under 1 ms "
+        f"{gl[gl < 1000].sum() / gl.sum():.3f}")
+    for i in np.argsort(-gl, kind="stable")[:PROFILE_GAPS]:
+        inner, outer = host_op_at(host, gs[i])
+        log(f"[profile] idle gap {gl[i] / 1e3:8.3f} ms at +{(gs[i] - w0) / 1e3:9.1f} "
+            f"ms; host op open: {inner} (outermost {outer})")
+
+    k_names, k_s, k_e = kernels
+    k_dur = k_e - k_s
+    out = {}
+    for name, sym in KERNEL_SYMBOLS.items():
+        hit = np.array([sym in n for n in k_names], bool)
+        found = sorted({n for n, h in zip(k_names, hit) if h})
+        out[name] = dict(launches_traced=int(hit.sum()),
+                         trace_ms_total=float(k_dur[hit].sum() / 1e3))
+        log(f"[profile] {name}: {out[name]['launches_traced']} in the trace, counter "
+            f"{launches[name]}; {out[name]['trace_ms_total']:.2f} ms; names {found}")
+    k_ms = sum(v["trace_ms_total"] for v in out.values())
+    log(f"[profile] K1-K5 {k_ms:.1f} ms: {k_ms * 1e3 / busy:.1%} of device busy time")
+    assert all(out[n]["launches_traced"] > 0 for n in KERNEL_SYMBOLS), \
+        f"a kernel of the path is missing from the trace: {out}"
+    assert all(out[n]["launches_traced"] == launches[n] for n in KERNEL_SYMBOLS), \
+        f"trace counts {out} against the wrappers' counters {launches}"
+    return out
 
 
 def phase_two_devices(scene_cpu):
@@ -1663,11 +1819,27 @@ def _compat_shoot(dev):
     return dict(seconds=res.seconds, beyond=beyond)
 
 
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic mode for the block. On CUDA the framebuffer's
+    ``index_add_`` adds a pixel's contributions of one iteration with atomics,
+    in an order that changes from run to run, so two runs of one render may
+    differ in the last bit; in this mode it sorts the indices first, and two
+    runs are bit-equal."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def _compat_grid(scene):
     """(d) The uniform grid: intersect_grid on phase 4's camera fan
     against K1 on the same rays (ids a counted fringe, times of both);
     render_image with accel="grid" against all pairs on cornell; and the
-    regen render with "grid" equal to "all_pairs"."""
+    regen render with "grid" bit-equal to "all_pairs", both in torch's
+    deterministic mode."""
     (ro, rd), _ = prepass_batches(scene, main_cfg())
     n = ro.shape[0]
     accel = ops_intersect.build_accel(scene)
@@ -1702,8 +1874,9 @@ def _compat_grid(scene):
     assert np.isfinite(gr.image).all() and close > 0.985 and abs(mgap) < 5e-3, \
         "the grid render disagrees with all pairs"
     rcfg = RenderConfig(**dict(base, max_depth=16))
-    ra = render_image_regen(csc, rcfg.replace(accel="all_pairs"), lanes=4096)
-    rg = render_image_regen(csc, rcfg.replace(accel="grid"), lanes=4096)
+    with deterministic():
+        ra = render_image_regen(csc, rcfg.replace(accel="all_pairs"), lanes=4096)
+        rg = render_image_regen(csc, rcfg.replace(accel="grid"), lanes=4096)
     log(f"[compat] (d) render_image_regen with grid: {rg.rays_traced} rays vs all pairs "
         f"{ra.rays_traced}; images equal {bool(np.array_equal(ra.image, rg.image))}")
     assert ra.rays_traced == rg.rays_traced and np.array_equal(ra.image, rg.image), \
@@ -1734,6 +1907,7 @@ def main():
     kernels = phase_kernels(scene) + phase_culled(scene)
     phase_end_to_end(scene, cached=False)
     launches, e2e = phase_end_to_end(scene, cached=True)
+    profile = phase_profile(scene)
     phase_two_devices(scene_cpu)
     fixed = phase_fixed_depth(scene, kernels)
     phase_gradient(scene_cpu)
@@ -1748,6 +1922,7 @@ def main():
         k["launches_blocker"] = compat["blocker"]["launches"][k["name"]]
         k["launches_sharded"] = sharded[k["name"]]
         k["launches_fixed_depth"] = fixed[k["name"]]
+        k.update(profile[k["name"]])
         k.update(auto.get(k["name"], {}))
         if k["name"] == "K1 nearest_hit":
             k["light_accel"] = compat["ref_mis"]["k1_light"]

@@ -28,3 +28,12 @@ def tone_map(
     x = torch.pow(x, gamma)
     q = torch.floor(x * 255.0 + 0.5)
     return torch.clamp(q, 0.0, 255.0).to(torch.uint8)
+
+
+def parse_radiance(text: str, device="cuda") -> torch.Tensor:
+    """Parse an ``"r,g,b"`` radiance string (RadianceRGB.cpp:17-27) into an
+    f32 [3] tensor on ``device``."""
+    parts = [float(p) for p in text.split(",")]
+    if len(parts) != 3:
+        raise ValueError(f"radiance string must be 'r,g,b', got {text!r}")
+    return torch.tensor(parts, dtype=torch.float32, device=device)

@@ -12,6 +12,8 @@ four bilinear forms in the ray feature g = [ro, rd, ro x rd, 1]:
 so each triangle is one packed [10, 4] matrix W and a ray-triangle test is
 g . W[:, c]. The dots here are the ordered sums k = 0..9 (``dot10``), the
 arithmetic of the port's kernels; no matmul (and so no TF32) is involved.
+:func:`intersect_oracle` is the direct broadcast form, the oracle that
+tests hold the matmul form against.
 """
 
 from __future__ import annotations
@@ -99,6 +101,23 @@ def recover(g: torch.Tensor, W: torch.Tensor, tri_ids: torch.Tensor,
     )
 
 
+def _select_best(det, u_num, v_num, t_num, tri_ids, exclude_id, t_eps):
+    """The nearest accepted hit of each ray among the [N, B] numerators of
+    one block, by the reference's strict accept rules (|det| > eps, u, v >=
+    0, u + v <= |det|, t > t_eps |det| after the sign fix; quirk Q8 id
+    exclusion). Returns (t [N], column [N], accepted [N]); t is BIG_T where
+    no column is accepted, and a tie goes to the lowest column."""
+    s = torch.sign(det)
+    adet = det.abs()
+    up, vp, tp = u_num * s, v_num * s, t_num * s
+    ok = ((adet > DET_EPS) & (up >= 0.0) & (vp >= 0.0) & (up + vp <= adet)
+          & (tp > t_eps * adet) & (tri_ids[None, :] != exclude_id[:, None]))
+    t = torch.where(ok, t_num / torch.where(adet > 0, det, torch.ones_like(det)),
+                    torch.full_like(det, BIG_T))
+    bt, bi = torch.min(t, dim=1)          # the first minimal column
+    return bt, bi, ok.gather(1, bi[:, None])[:, 0]
+
+
 def intersect_matmul(
     ro: torch.Tensor,
     rd: torch.Tensor,
@@ -119,17 +138,36 @@ def intersect_matmul(
     best_i = torch.full((N,), -1, dtype=torch.int64, device=ro.device)
     for b0 in range(0, W.shape[0], block):
         Wb = W[b0:b0 + block]
-        det, un, vn, tn = (dot10(g, Wb[:, :, c]) for c in range(4))
-        s = torch.sign(det)
-        adet = det.abs()
-        up, vp, tp = un * s, vn * s, tn * s
-        ok = ((adet > DET_EPS) & (up >= 0.0) & (vp >= 0.0) & (up + vp <= adet)
-              & (tp > t_eps * adet)
-              & (tri_ids[None, b0:b0 + block] != exclude_id[:, None]))
-        t = torch.where(ok, tn / torch.where(adet > 0, det, torch.ones_like(det)),
-                        torch.full_like(det, BIG_T))
-        bt, bi = torch.min(t, dim=1)
+        vals = [dot10(g, Wb[:, :, c]) for c in range(4)]
+        bt, bi, _ = _select_best(*vals, tri_ids[b0:b0 + block], exclude_id, t_eps)
         better = bt < best_t
         best_t = torch.where(better, bt, best_t)
         best_i = torch.where(better, b0 + bi, best_i)
     return recover(g, W, tri_ids, best_i)
+
+
+def intersect_oracle(ro, rd, v0, e1, e2, tri_ids, exclude_id=None, t_eps: float = T_EPS) -> Hit:
+    """Direct broadcast Moller-Trumbore (the reference's Cramer solve,
+    Myobj.cpp:165-192): an oracle independent of the matmul form, holding
+    O(N T) memory, for tests only."""
+    N = ro.shape[0]
+    if exclude_id is None:
+        exclude_id = torch.full((N,), NO_HIT, dtype=torch.int32, device=ro.device)
+    pvec = vm.cross(rd[:, None, :], e2[None])                  # [N,T,3]
+    det = vm.dot(pvec, e1[None])                               # [N,T]
+    s = ro[:, None, :] - v0[None]
+    u_num = vm.dot(s, pvec)
+    qvec = vm.cross(s, e1[None])
+    v_num = vm.dot(rd[:, None, :], qvec)
+    t_num = vm.dot(e2[None], qvec)
+    bt, bi, ok = _select_best(det, u_num, v_num, t_num, tri_ids, exclude_id, t_eps)
+    col = bi[:, None]
+    d = det.gather(1, col)[:, 0]
+    inv_det = 1.0 / torch.where(d.abs() > 0, d, torch.ones_like(d))
+    return Hit(
+        t=bt,
+        tri_id=torch.where(ok, tri_ids[bi], torch.full_like(tri_ids[bi], NO_HIT)),
+        u=u_num.gather(1, col)[:, 0] * inv_det,
+        v=v_num.gather(1, col)[:, 0] * inv_det,
+        valid=ok,
+    )

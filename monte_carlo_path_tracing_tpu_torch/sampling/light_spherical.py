@@ -18,6 +18,8 @@ them once.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from monte_carlo_path_tracing_tpu_torch.core import rng, vecmath as vm
@@ -35,19 +37,62 @@ def _acos_c(x: torch.Tensor) -> torch.Tensor:
     return torch.acos(torch.clamp(x, -_CLAMP, _CLAMP))
 
 
+def _seen(x1, n, pa, pb, pc, nl):
+    """The reference's culls: x1 strictly in front of the light
+    (Mylight.cpp:180-185), and some light vertex above the tangent plane
+    of n (Mylight.cpp:187-197)."""
+    front = vm.dot(nl, x1 - pa) > EPS
+    above = (vm.dot(n, pa - x1) > EPS) | (vm.dot(n, pb - x1) > EPS) | (vm.dot(n, pc - x1) > EPS)
+    return front & above
+
+
+def _oriented_dirs(x1, n, pa, pb, pc):
+    """Unit directions A, B, C from x1 to the vertices, B and C swapped where
+    ((C-A) x (B-A)) . n < 0 (the reference's winding fix, Mylight.cpp:205-211)."""
+    A = vm.normalize(pa - x1)
+    B0 = vm.normalize(pb - x1)
+    C0 = vm.normalize(pc - x1)
+    swap = vm.dot(vm.cross(C0 - A, B0 - A), n) < 0.0
+    return A, torch.where(swap[..., None], C0, B0), torch.where(swap[..., None], B0, C0)
+
+
+def project(x1, n, pa, pb, pc, nl):
+    """Project light triangle(s) (pa, pb, pc; geometric normal nl) onto the
+    unit sphere at x1 with surface normal n, by the reference's Girard
+    chain (Mylight.cpp:180-236). Inputs broadcast against each other with
+    a trailing xyz axis.
+
+    Returns a dict: valid, sA (spherical excess), alpha (angle at A),
+    edge_c (arc AB) and the oriented unit directions A, B, C."""
+    seen = _seen(x1, n, pa, pb, pc, nl)
+    A, B, C = _oriented_dirs(x1, n, pa, pb, pc)
+    # Edge lengths (Mylight.cpp:215-222), angles from the edge planes' normals
+    # (Mylight.cpp:225-233).
+    a = _acos_c(vm.dot(B, C))
+    b = _acos_c(vm.dot(A, C))
+    c = _acos_c(vm.dot(A, B))
+    n_ba = vm.normalize(vm.cross(B, A))
+    n_ac = vm.normalize(vm.cross(A, C))
+    n_cb = vm.normalize(vm.cross(C, B))
+    alpha = _acos_c(-vm.dot(n_ba, n_ac))
+    beta = _acos_c(-vm.dot(n_cb, n_ba))
+    gamma = _acos_c(-vm.dot(n_ac, n_cb))
+    sA = alpha + beta + gamma - math.pi
+    valid = (seen & (a > EPS) & (b > EPS) & (c > EPS) & (alpha > EPS) & (beta > EPS)
+             & (gamma > EPS) & (sA > 0.0) & torch.isfinite(sA))
+    return {"valid": valid, "sA": sA, "alpha": alpha, "edge_c": c, "A": A, "B": B, "C": C}
+
+
 def solid_angle_fast(x1, n, pa, pb, pc, nl):
     """(sA, valid) via Van Oosterom-Strackee, tan(sA/2) = |det[A B C]| /
     (1 + A.B + B.C + C.A), with the front / horizon culls of ``prepare``."""
-    front = vm.dot(nl, x1 - pa) > EPS
-    above = ((vm.dot(n, pa - x1) > EPS) | (vm.dot(n, pb - x1) > EPS)
-             | (vm.dot(n, pc - x1) > EPS))
     A = vm.normalize(pa - x1)
     B = vm.normalize(pb - x1)
     C = vm.normalize(pc - x1)
     det = vm.det3(A, B, C).abs()
     denom = 1.0 + vm.dot(A, B) + vm.dot(B, C) + vm.dot(C, A)
     sA = 2.0 * torch.atan2(det, denom)
-    valid = front & above & (sA > EPS) & torch.isfinite(sA)
+    valid = _seen(x1, n, pa, pb, pc, nl) & (sA > EPS) & torch.isfinite(sA)
     return sA, valid
 
 
@@ -62,12 +107,7 @@ def light_table(scene: Scene) -> torch.Tensor:
 def _project_for_warp(x1, n, pa, pb, pc):
     """Oriented unit directions and what Arvo's warp consumes:
     (A, B, C, alpha, cos_c, sA), for the selected triangle only."""
-    A = vm.normalize(pa - x1)
-    B0 = vm.normalize(pb - x1)
-    C0 = vm.normalize(pc - x1)
-    swap = vm.dot(vm.cross(C0 - A, B0 - A), n) < 0.0   # winding (Mylight.cpp:205-211)
-    B = torch.where(swap[..., None], C0, B0)
-    C = torch.where(swap[..., None], B0, C0)
+    A, B, C = _oriented_dirs(x1, n, pa, pb, pc)
     n_ba = vm.normalize(vm.cross(B, A))
     n_ac = vm.normalize(vm.cross(A, C))
     alpha = _acos_c(-vm.dot(n_ba, n_ac))

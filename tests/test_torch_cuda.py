@@ -3,7 +3,7 @@ also against K1 / K2), and the port's renders on the card against the same
 renders on the CPU: the regeneration render uncached and cached, bathroom
 with accel="auto" (K4 / K5 in the loop), the fixed-depth render_image,
 pixel_grad, recover_materials, and the sharded regeneration render at
-world size 1 on NCCL.
+world size 1 on NCCL; utils.profiling.device_trace's trace of K1.
 
 Needs an NVIDIA GPU: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where only PyTorch is installed:
@@ -794,3 +794,29 @@ def test_compat_render_image_card_matches_cpu(dev, change):
     assert np.isfinite(b).all()
     diverged = ~np.isclose(b, a, rtol=1e-2, atol=1e-3).all(-1)
     assert int(diverged.sum()) <= max(2, diverged.size // 100)
+
+
+def test_device_trace_records_the_kernels(dev, tmp_path):
+    """utils.profiling.device_trace on the card: each K1 launch inside the
+    block is one nearest_kernel event in the written Chrome trace; a block
+    that runs no kernel raises (no CPU-only trace), and writes nothing."""
+    import json
+
+    from monte_carlo_path_tracing_tpu_torch.utils.profiling import device_trace
+
+    g, W, ids, excl, _ = _rays(300, 257, dev)
+    intersect_cuda.nearest_hit(g, W, ids, excl)          # build and warm up outside
+    torch.cuda.synchronize()
+    n1 = intersect_cuda.nearest_hit.launches
+    with device_trace(str(tmp_path / "t"), device="cuda") as prof:
+        for _ in range(3):
+            intersect_cuda.nearest_hit(g, W, ids, excl)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    assert sum("nearest_kernel" in n for n in names) == intersect_cuda.nearest_hit.launches - n1
+    assert intersect_cuda.nearest_hit.launches - n1 == 3
+    with pytest.raises(RuntimeError, match="no CUDA kernel"):
+        with device_trace(str(tmp_path / "empty"), device="cuda"):
+            torch.ones(3).sum()
+    assert not os.listdir(tmp_path / "empty")

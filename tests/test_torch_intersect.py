@@ -1,7 +1,9 @@
 """The port's intersection (ops/intersect.py, ops/intersect_cuda.py) against
 the JAX package: accel build, and the plain versions of K1/K2 against the
-Pallas kernels in interpret mode and against intersect_matmul. K1/K2
-against their plain versions on a card: tests/test_torch_cuda.py."""
+Pallas kernels in interpret mode and against intersect_matmul; the port's
+broadcast oracle (ops/intersect_ref.intersect_oracle) against JAX's, and
+K1's plain version against it. K1/K2 against their plain versions on a
+card: tests/test_torch_cuda.py."""
 
 import os
 
@@ -136,3 +138,47 @@ def test_cpu_tensors_take_the_plain_version():
     tops.intersect(accel, tro, trd, texcl)
     tops.occluded(accel, tro, trd, ttmax, texcl)
     assert (tic.nearest_hit.launches, tic.occluded.launches) == (n1, n2)
+
+
+def test_oracle_matches_jax_oracle():
+    """The port's direct broadcast Moller-Trumbore against JAX's on the
+    same seeded rays and triangles (every 7th ray excluding one id): valid
+    flags and ids equal but for a counted fringe of near-ties and accept
+    boundaries (XLA contracts the cross products into FMAs, the port rounds
+    every op), t within 1e-5 relative where the ids agree."""
+    T, N = 263, 2047
+    v0, e1, e2, ro, rd, excl, _ = _case(T, N, seed=4)
+    ids = np.arange(T, dtype=np.int32)
+    hj = jir.intersect_oracle(*(jnp.asarray(a) for a in (ro, rd, v0, e1, e2, ids, excl)))
+    ht = tir.intersect_oracle(*_torch(ro, rd, v0, e1, e2, ids, excl))
+    jid, tid = np.asarray(hj.tri_id), ht.tri_id.numpy()
+    assert (jid != tid).sum() <= N // 500, int((jid != tid).sum())
+    np.testing.assert_array_equal(np.asarray(hj.valid), ht.valid.numpy())
+    m = (jid == tid) & ht.valid.numpy()
+    assert 0.2 < m.mean() < 0.98
+    np.testing.assert_allclose(ht.t.numpy()[m], np.asarray(hj.t)[m], rtol=1e-5)
+    for a, b in ((hj.u, ht.u), (hj.v, ht.v)):
+        np.testing.assert_allclose(b.numpy()[m], np.asarray(a)[m], rtol=1e-4, atol=1e-5)
+    assert (tid[ht.valid.numpy()] != excl[ht.valid.numpy()]).all()        # quirk Q8
+
+
+def test_plain_nearest_matches_oracle():
+    """JAX tests/test_intersect.py:47 on the port: its plain nearest hit
+    (K1's plain version, the matmul form) against its broadcast oracle on
+    unaligned sizes; valid flags equal, t to 1e-3, ids equal on 99.5% (an
+    fp tie may pick the other of two hits), u / v to 2e-3."""
+    T, N = 263, 511
+    v0, e1, e2, ro, rd, _, _ = _case(T, N, seed=5)
+    tv0, te1, te2, tro, trd = _torch(v0, e1, e2, ro, rd)
+    ids = torch.arange(T, dtype=torch.int32)
+    excl = torch.full((N,), tir.NO_HIT, dtype=torch.int32)
+    hm = tic.nearest_hit(tir.ray_features(tro, trd), tir.pack_tri_matrix(tv0, te1, te2), ids,
+                         excl)
+    ho = tir.intersect_oracle(tro, trd, tv0, te1, te2, ids)
+    np.testing.assert_array_equal(hm.valid.numpy(), ho.valid.numpy())
+    m = hm.valid.numpy()
+    np.testing.assert_allclose(hm.t.numpy()[m], ho.t.numpy()[m], rtol=1e-3)
+    same = hm.tri_id.numpy()[m] == ho.tri_id.numpy()[m]
+    assert same.mean() > 0.995
+    for a, b in ((hm.u, ho.u), (hm.v, ho.v)):
+        np.testing.assert_allclose(a.numpy()[m][same], b.numpy()[m][same], atol=2e-3)

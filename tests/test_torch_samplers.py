@@ -4,6 +4,10 @@ tests/test_phong.py:19-100 and tests/test_lights.py:11-206 run on the
 port's functions, with the port's threefry streams (keys from
 ``rng.base_key``) and numpy draws made from a seed.
 
+The full spherical projection (``light_spherical.project``) is held
+against JAX's on seeded configurations and through the ports of
+tests/test_lights.py:64-90, :152 and :206.
+
 Tolerances are the JAX tests' own: Monte Carlo bounds set by their sample
 counts (pdf normalisation to 3% over 200,000 uniform directions, the
 cos(theta) histogram to rtol 0.12 / atol 0.05 per bin, class frequencies
@@ -234,3 +238,102 @@ def test_prepare_matches_direct_solid_angles(scenes):
         bad = (np.abs(w.numpy() - w_ref) > 2e-3 * max(w_ref.max(), 1e-6)).mean()
         assert bad < 2e-3, bad
         np.testing.assert_allclose(wsum.numpy(), w_ref.sum(-1), rtol=5e-3, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The full projection (JAX sampling/light_spherical.py::project)
+# ---------------------------------------------------------------------------
+
+def _random_projections(N, seed):
+    """N seeded random (x1, n, pa, pb, pc, nl) as in JAX test_lights.py:152:
+    light normals turned toward x1 so that the front cull passes about half
+    the time; f32 numpy arrays."""
+    g = np.random.default_rng(seed)
+    f = lambda a: a.astype(np.float32)  # noqa: E731
+    x1 = f(g.uniform(-1, 1, (N, 3)))
+    n = g.normal(size=(N, 3))
+    n = f(n / np.linalg.norm(n, axis=-1, keepdims=True))
+    pa = f(x1 + g.uniform(1, 3, (N, 3)))
+    pb = f(pa + g.normal(size=(N, 3)))
+    pc = f(pa + g.normal(size=(N, 3)))
+    nl = np.cross(pb - pa, pc - pa)
+    nl = nl / np.linalg.norm(nl, axis=-1, keepdims=True)
+    flip = (nl * (x1 - pa)).sum(-1) < 0
+    return x1, n, pa, pb, pc, f(np.where(flip[:, None], -nl, nl))
+
+
+def test_project_matches_jax():
+    """project against JAX's on 4,096 seeded configurations: valid equal
+    but for a counted fringe of at most 0.1% (the culls compare at EPS,
+    and XLA contracts multiply-adds that the port rounds; measured 0);
+    where both are valid, A, B, C and edge_c within rtol 1e-5 / atol 1e-6.
+    alpha and sA take acos of nearly antiparallel edge-plane normals and
+    sA subtracts pi from their sum, so one ulp of a dot moves them by up
+    to ~2e-4 in either package: they are held to JAX's accuracy instead,
+    against the same chain in f64 (the port's mean error at most 1.25x
+    JAX's; measured 1.02-1.07x), and within 1e-3 of JAX's values (JAX
+    test_lights.py:206 holds this chain to 2e-3)."""
+    import jax.numpy as jnp
+
+    from monte_carlo_path_tracing_tpu.sampling import light_spherical as jls
+
+    args = _random_projections(4096, 7)
+    pj = jls.project(*(jnp.asarray(a) for a in args))
+    pt = light_spherical.project(*(torch.from_numpy(a) for a in args))
+    p64 = light_spherical.project(*(torch.from_numpy(a).double() for a in args))
+    vj, vt = np.asarray(pj["valid"]), pt["valid"].numpy()
+    assert (vj != vt).sum() <= 4, int((vj != vt).sum())
+    both = vj & vt
+    assert both.sum() > 1000
+    for k in ("A", "B", "C", "edge_c"):
+        np.testing.assert_allclose(pt[k].numpy()[both], np.asarray(pj[k])[both], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    both &= p64["valid"].numpy()
+    for k in ("alpha", "sA"):
+        got, want, exact = pt[k].numpy()[both], np.asarray(pj[k])[both], p64[k].numpy()[both]
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-3, err_msg=k)
+        assert np.abs(got - exact).mean() <= 1.25 * np.abs(want - exact).mean(), k
+
+
+def test_project_octant_area_and_culls():
+    """JAX test_lights.py:64-90: the octant's excess, angle at A and arc AB
+    are pi/2; behind the light plane or below the horizon it is culled."""
+    x1, n, pa, pb, pc, nl = _octant()
+    pr = light_spherical.project(x1, n, pa, pb, pc, nl)
+    assert bool(pr["valid"][0])
+    np.testing.assert_allclose([float(pr[k][0]) for k in ("sA", "alpha", "edge_c")],
+                               [math.pi / 2] * 3, rtol=1e-4)
+    assert not bool(light_spherical.project(x1, n, pa, pb, pc, -nl)["valid"][0])
+    assert not bool(light_spherical.project(x1, -n, pa, pb, pc, nl)["valid"][0])
+
+
+def test_fast_solid_angle_matches_girard():
+    """JAX test_lights.py:152: Van Oosterom-Strackee's sA equals the Girard
+    excess of project on random valid configurations (rtol 2e-3 / atol
+    1e-4: the acos chain loses digits near degenerate triangles)."""
+    args = [torch.from_numpy(a) for a in _random_projections(512, 1234)]
+    pr = light_spherical.project(*args)
+    sA, valid = light_spherical.solid_angle_fast(*args)
+    both = (pr["valid"] & valid).numpy()
+    assert both.sum() > 50
+    np.testing.assert_allclose(sA.numpy()[both], pr["sA"].numpy()[both], rtol=2e-3, atol=1e-4)
+
+
+def test_project_for_warp_matches_full_projection():
+    """JAX test_lights.py:206: the warp's lean projection (one acos, one
+    atan2) agrees with project on all that Arvo's warp consumes."""
+    g = np.random.default_rng(11)
+    M = 256
+    f = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    x1 = f(g.normal(size=(M, 3)))
+    n = vm.normalize(f(g.normal(size=(M, 3))))
+    pa, pb, pc = (x1 + f(g.normal(size=(M, 3)) + 3.0) for _ in range(3))
+    nl = vm.normalize(vm.cross(pb - pa, pc - pa))
+    pr = light_spherical.project(x1, n, pa, pb, pc, nl)
+    A, B, C, alpha, cos_c, sA = light_spherical._project_for_warp(x1, n, pa, pb, pc)
+    v = pr["valid"].numpy()
+    assert v.sum() > 20
+    for a, b, tol in ((A, pr["A"], 1e-5), (B, pr["B"], 1e-5), (C, pr["C"], 1e-5),
+                      (alpha, pr["alpha"], 2e-3), (cos_c, torch.cos(pr["edge_c"]), 1e-5),
+                      (sA, pr["sA"], 2e-3)):
+        np.testing.assert_allclose(a.numpy()[v], b.numpy()[v], atol=tol)
