@@ -104,7 +104,15 @@ exits non-zero without printing a result:
    against CPU at 32^2; (d) the uniform grid on phase 4's camera fan
    against K1 (ids, milliseconds of both), ``render_image`` with
    ``accel="grid"`` against all pairs on cornell 64^2 x 2 spp, and the
-   regen render with ``"grid"`` equal to ``"all_pairs"``.
+   regen render with ``"grid"`` equal to ``"all_pairs"``;
+15. bench: ``python -m monte_carlo_path_tracing_tpu_torch.bench`` as a
+   subprocess at its defaults (the main path), cached (3 reps) and
+   uncached (2 reps), its two lines printed: checksum and rays against the
+   stream-determined references (bounds of phases 5 / 6) and against the
+   in-process renders of phases 5 / 6 (rays equal, checksum within 1e-5);
+   then at 256^2, and its default rows, against the exact-f32 reference
+   that the JAX package's ``bench.py`` computed on the CPU
+   (``docs/torch_bench_exact_ref.json``).
 
 The last lines are a JSON object of per-kernel results (time, plain
 version's time, bound — the larger of the operations this run's inputs
@@ -119,7 +127,8 @@ bathroom's auto render and, on its recorded loop batch, ``loop_ms``,
 render; ``launches_ref_mis`` and ``launches_blocker``, its launches in
 phase 14's ref-MIS cached render and blocker render; ``launches_traced``
 and ``trace_ms_total``, its launches and summed kernel time in phase 6b's
-trace; K1 also
+trace; ``launches_bench`` and ``launches_bench_uncached``, its
+launches in the timed rep of phase 15's two bench rows; K1 also
 ``light_accel``, its times on the lights-only accels, and ``grid_fan``,
 the grid's and K1's times on the camera fan), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
@@ -292,6 +301,22 @@ COMPAT_SMALL, COMPAT_CACHE_GAP = 512, 1e-4
 BLOCKER_SPP, BLOCKER_CPU_RES = 2, 32
 SHOOT_RES, SHOOT_CPU_RES = 256, 32
 GRID_RES, GRID_N0_CORNELL = 64, 5000
+#: Phase "bench": ``python -m monte_carlo_path_tracing_tpu_torch.bench`` as a
+#: subprocess at its defaults (the main path), cached with
+#: BENCH_REPS_CACHED reps and uncached with BENCH_REPS_UNCACHED; its
+#: checksum against phase 6's (5's) in-process render of the same cell
+#: within BENCH_E2E_GAP relative (the same lanes and streams: only the
+#: order of index_add_'s additions differs), its ray count equal. Then its
+#: rows against the exact-f32 reference that the JAX package's bench.py
+#: computed on the CPU (EXACT_REF: Veach 256^2 and 1024^2 x 8 spp, cached
+#: and uncached) within EXACT_CHECKSUM_GAP / EXACT_RAYS_GAP: 3x the largest
+#: first gaps measured on an H100 (checksum -1.888e-5 at 1024^2 cached,
+#: rays +3.275e-7 at 1024^2 uncached; at 256^2 +5.1e-6 and 0), where the
+#: TPU references above stand 33x further off (their bf16x3 dots).
+BENCH_REPS_CACHED, BENCH_REPS_UNCACHED, BENCH_E2E_GAP = 3, 2, 1e-5
+EXACT_REF = os.path.join(ROOT, "docs", "torch_bench_exact_ref.json")
+EXACT_CHECKSUM_GAP, EXACT_RAYS_GAP = 5.7e-5, 1e-6
+BENCH_S = 600
 
 
 def log(*a):
@@ -1896,6 +1921,85 @@ def phase_compat(scene, e2e):
     return launches, dict(ref_mis=ref, blocker=blocker, shoot=shoot, grid=grid)
 
 
+def run_bench(**knobs):
+    """``python -m monte_carlo_path_tracing_tpu_torch.bench`` on the card with
+    ``knobs`` (BENCH_REP_SPACING_S 0): (its contract line, its extra line).
+    Exactly one of each, or it raises."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_REP_SPACING_S="0", **knobs)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "monte_carlo_path_tracing_tpu_torch.bench"],
+                       cwd=ROOT, env=env, capture_output=True, text=True, timeout=BENCH_S)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"bench {knobs} exited {r.returncode}:\n{r.stderr[-4000:]}")
+    lines = [ln for ln in r.stdout.splitlines() if ln.strip()]
+    extra = [ln for ln in r.stderr.splitlines() if ln.startswith("# {")]
+    assert len(lines) == 1 and len(extra) == 1, f"bench {knobs}: {r.stdout!r} {r.stderr[-2000:]}"
+    log(f"[bench] {knobs or 'defaults'}: {wall:.1f} s wall")
+    log(f"[bench]   {lines[0]}")
+    log(f"[bench]   {extra[0]}")
+    return json.loads(lines[0]), json.loads(extra[0][2:])
+
+
+def _bench_gap(extra, checksum, rays):
+    return extra["fb_checksum"] / checksum - 1.0, extra["total_rays"] / rays - 1.0
+
+
+def phase_bench(name, e2e_uncached, e2e):
+    """The port's bench at its defaults, cached and uncached, against the
+    stream-determined references and phases 5 / 6; then at 256^2 (and at
+    its defaults, from the rows above) against the exact-f32 reference.
+    Returns each kernel's launches in the timed rep of both rows."""
+    t0 = time.perf_counter()
+    rows = {"cached": run_bench(BENCH_REPS=str(BENCH_REPS_CACHED)),
+            "uncached": run_bench(BENCH_REPS=str(BENCH_REPS_UNCACHED), BENCH_PRIMARY_CACHE="0")}
+    refs = {"cached": (REF_CHECKSUM_CACHED, REF_RAYS_CACHED, CHECKSUM_GAP_CACHED,
+                       RAYS_GAP_CACHED, e2e, LANES_CACHED, list(KERNELS)),
+            "uncached": (REF_CHECKSUM, REF_RAYS, CHECKSUM_GAP, RAYS_GAP, e2e_uncached, LANES,
+                         list(KERNELS)[:3])}
+    for row, (result, extra) in rows.items():
+        ref_c, ref_r, bound_c, bound_r, phase, lanes, want = refs[row]
+        gap_c, gap_r = _bench_gap(extra, ref_c, ref_r)
+        e2e_c = extra["fb_checksum"] / phase["checksum"] - 1.0
+        log(f"[bench] {row}: {result['value']} Mrays/s, best {extra['seconds']} s, median "
+            f"{extra['seconds_median']} s, reps {extra['rep_seconds']} (in-process phase: "
+            f"{phase['seconds']:.2f} s); gap to the reference fb_checksum {gap_c:+.3e} (bound "
+            f"{bound_c:g}), total_rays {gap_r:+.3e} (bound {bound_r:g}); against the "
+            f"in-process render: rays {extra['total_rays']} vs {phase['rays']}, checksum "
+            f"{e2e_c:+.3e} (bound {BENCH_E2E_GAP:g}); launches in the timed rep "
+            f"{extra['launches']}")
+        assert result["metric"] == "Mrays/s/chip" and result["value"] > 0, result
+        assert extra["device"] == name and extra["backend"] == "cuda", extra
+        assert extra["power_limit"] and extra["lanes"] == lanes and extra["res"] == RES, extra
+        assert all(extra["launches"][k] > 0 for k in want), \
+            f"bench {row}: a kernel of the path never launched: {extra['launches']}"
+        assert abs(gap_c) <= bound_c and abs(gap_r) <= bound_r, \
+            f"bench {row} drifted from the reference streams"
+        assert extra["total_rays"] == phase["rays"] and abs(e2e_c) <= BENCH_E2E_GAP, \
+            f"bench {row} differs from the in-process render of the same cell"
+
+    with open(EXACT_REF) as f:
+        exact = json.load(f)["rows"]
+    measured = {(RES, row): extra for row, (_, extra) in rows.items()}
+    for row, cache in (("cached", "1"), ("uncached", "0")):
+        measured[(256, row)] = run_bench(BENCH_RES="256", BENCH_REPS="1",
+                                         BENCH_PRIMARY_CACHE=cache)[1]
+    for ref in exact:
+        key = (ref["res"], "cached" if ref["primary_cache"] else "uncached")
+        extra = measured[key]
+        gap_c, gap_r = _bench_gap(extra, ref["fb_checksum"], ref["total_rays"])
+        log(f"[bench] exact f32 ({ref['res']}^2 {key[1]}, JAX on the CPU): fb_checksum "
+            f"{extra['fb_checksum']} vs {ref['fb_checksum']} ({gap_c:+.3e}, bound "
+            f"{EXACT_CHECKSUM_GAP:g}), total_rays {extra['total_rays']} vs {ref['total_rays']} "
+            f"({gap_r:+.3e}, bound {EXACT_RAYS_GAP:g}), rays_physical {extra['rays_physical']} "
+            f"vs {ref['rays_physical']}")
+        assert abs(gap_c) <= EXACT_CHECKSUM_GAP and abs(gap_r) <= EXACT_RAYS_GAP, \
+            f"bench {key} drifted from the exact-f32 reference"
+    log(f"[bench] phase wall {time.perf_counter() - t0:.1f} s")
+    return {row: extra["launches"] for row, (_, extra) in rows.items()}
+
+
 def main():
     if sys.argv[1:2] == ["--rank"]:
         rank_main(sys.argv[2])
@@ -1905,7 +2009,7 @@ def main():
     scene_cpu = load_scene(VEACH, device="cpu")
     scene = with_res(scene_cpu, RES, RES).to("cuda")
     kernels = phase_kernels(scene) + phase_culled(scene)
-    phase_end_to_end(scene, cached=False)
+    _, e2e_uncached = phase_end_to_end(scene, cached=False)
     launches, e2e = phase_end_to_end(scene, cached=True)
     profile = phase_profile(scene)
     phase_two_devices(scene_cpu)
@@ -1916,7 +2020,10 @@ def main():
     phase_inverse()
     sharded = phase_sharded(scene, e2e)
     compat_launches, compat = phase_compat(scene, e2e)
+    bench = phase_bench(name, e2e_uncached, e2e)
     for k in kernels:
+        k["launches_bench"] = bench["cached"][k["name"]]
+        k["launches_bench_uncached"] = bench["uncached"][k["name"]]
         k["launches"] = launches[k["name"]]
         k["launches_ref_mis"] = compat_launches[k["name"]]
         k["launches_blocker"] = compat["blocker"]["launches"][k["name"]]

@@ -18,11 +18,14 @@ and without ``--cpu`` the command fails. ``--ref-mis-full`` sets
 ``render``, as in the JAX CLI; where the JAX CLI fails on a combination
 (``inverse --ref-mis-full``: the blocker queue is a regen feature;
 ``inverse --accel grid``: no gradient through the grid) the port fails
-the same way. Flags whose code the port does not run exit non-zero with a
-message naming the ROADMAP item: ``--impl`` and ``--dot-mode`` with any
-value (the port's kernels are exact f32 CUDA), ``--no-fused-arvo`` (on
-the card the Arvo pick is always the K3 kernel) and ``--fused-arvo`` with
-``--cpu`` (no kernel runs on the CPU).
+the same way. With ``--cpu``, ``--impl matmul`` and ``--no-fused-arvo``
+run: they name the plain intersection and the plain Arvo pick, which is
+what the port runs on the CPU anyway. Flags whose code the port does not
+run exit non-zero, before any scene loads, with a message naming the
+ROADMAP item: ``--impl pallas`` and ``--dot-mode`` with any value (the
+port's kernels are exact f32 CUDA), ``--impl matmul`` and
+``--no-fused-arvo`` on the card (there K1 / K2 and the K3 kernel always
+run) and ``--fused-arvo`` with ``--cpu`` (no kernel runs on the CPU).
 Like the JAX CLI, ``main()`` first calls ``init_distributed_if_needed``
 (``parallel/mesh.py``): under torchrun's or SLURM's variables it joins the
 process group (NCCL; gloo with ``--cpu``), and otherwise does nothing. Each
@@ -69,7 +72,8 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                         "via the regen work queue (implies --ref-mis-weights and --regen)")
     p.add_argument("--cpu", action="store_true", help="run on the CPU (default: the card)")
     p.add_argument("--impl", default=None, choices=[None, "pallas", "matmul"],
-                   help=f"TPU intersection implementations; not ported ({DO_NOT_PORT})")
+                   help="matmul = the plain intersection, with --cpu only; pallas = the TPU "
+                        f"kernels, not ported ({DO_NOT_PORT})")
     p.add_argument("--accel", default="auto", choices=["auto", "all_pairs", "grid"],
                    help="auto = all pairs, with the loop's lane sort and culled traces "
                         "on scenes of 24,000 triangles or more; grid = the reference's "
@@ -86,17 +90,20 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fused-arvo", default=None, action="store_true",
                    help="the K3 Arvo pick kernel (the default on the card)")
     p.add_argument("--no-fused-arvo", dest="fused_arvo", action="store_false",
-                   help=f"the plain Arvo pick; not supported ({DO_NOT_PORT})")
+                   help=f"the plain Arvo pick, with --cpu only ({DO_NOT_PORT} on the card)")
 
 
 def _unsupported(args) -> str | None:
     """The message for a flag the port does not run, or None."""
     bad = [
-        (args.impl is not None, f"--impl {args.impl} (TPU intersection; {DO_NOT_PORT})"),
+        (args.impl == "pallas", f"--impl pallas (TPU intersection; {DO_NOT_PORT})"),
+        (args.impl == "matmul" and not args.cpu,
+         "--impl matmul without --cpu (would put the plain intersection on the card's "
+         f"main path; {DO_NOT_PORT})"),
         (args.dot_mode is not None, f"--dot-mode {args.dot_mode} (TPU dot modes; {DO_NOT_PORT})"),
-        (args.fused_arvo is False,
-         "--no-fused-arvo (would put the plain Arvo pick on the card's main path; "
-         f"{DO_NOT_PORT})"),
+        (args.fused_arvo is False and not args.cpu,
+         "--no-fused-arvo without --cpu (would put the plain Arvo pick on the card's main "
+         f"path; {DO_NOT_PORT})"),
         (args.fused_arvo is True and args.cpu,
          "--fused-arvo with --cpu (the K3 kernel runs only on the card)"),
     ]

@@ -7,9 +7,9 @@ material fields read at main.cpp:292). Faces with >3 vertices are fan-
 triangulated (tinyobj's default, which the reference relies on since it
 indexes ``indices[3*f+v]`` everywhere, Myobj.cpp:94,137,641).
 
-Same parser as ``monte_carlo_path_tracing_tpu/scene/objparse.py``. The
-native ctypes loader is not ported yet (ROADMAP queue 1, "Remainders of
-done slices").
+Same parser as ``monte_carlo_path_tracing_tpu/scene/objparse.py``.
+``load_scene`` prefers the native ctypes loader (``scene/native_loader.py``)
+when its library is built, and parses here otherwise.
 
 Output is plain numpy (device transfer happens in scene.build).
 """

@@ -5,8 +5,9 @@ frozen dataclass with the same fields and defaults, so a configuration
 reads the same in both packages. Left out are the knobs that only select
 TPU code: ``use_pallas``, ``dot_mode`` (the port's kernels are exact f32)
 and ``fused_arvo`` (the port picks its Arvo kernel by tensor device).
-Fields whose code paths the port does not run yet are kept and rejected by
-the renderer that would need them, naming the ROADMAP item.
+Every other field runs. The one value the port rejects is
+``ray_sort_every > 1`` (``integrator/regen.py``: not ported, by decision),
+named with its ROADMAP item.
 """
 
 from __future__ import annotations

@@ -153,7 +153,13 @@ def _outcome(main, capsys, argv):
 
 
 #: The flags of the reference-parity options, once refused by the port as
-#: "Compat and accel extras" and now run: each case's id is kept.
+#: "Compat and accel extras" and now run: each case's id is kept. The
+#: TPU-only flags that name what the port runs on the CPU anyway run there
+#: too (refused on the card: ``test_cpu_only_flags_are_refused_on_the_card``);
+#: their ids keep the ROADMAP item that refuses them on the card.
+RUN_WITH_CPU = (["--impl", "matmul"], ["--no-fused-arvo"])
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--estimator", "shoot"], "Compat and accel extras"),
     (["--accel", "grid"], "Compat and accel extras"),
@@ -167,11 +173,12 @@ def _outcome(main, capsys, argv):
 @pytest.mark.parametrize("cmd", ["render", "inverse"])
 def test_refused_flags_name_their_roadmap_item(capsys, cmd, flags, item):
     """The TPU-only flags ("Do not port") exit non-zero naming their ROADMAP
-    item. The reference-parity flags run, and the port's outcome equals the
-    JAX CLI's: exit code and last-line keys, or the same exception where
-    the JAX CLI fails (inverse --ref-mis-full: the blocker queue is a regen
+    item, apart from ``RUN_WITH_CPU`` under ``--cpu``. The reference-parity
+    flags and ``RUN_WITH_CPU`` run, and the port's outcome equals the JAX
+    CLI's: exit code and last-line keys, or the same exception where the
+    JAX CLI fails (inverse --ref-mis-full: the blocker queue is a regen
     feature; inverse --accel grid: no gradient through the grid's loop)."""
-    if item == "Do not port":
+    if item == "Do not port" and flags not in RUN_WITH_CPU:
         rc, _, err = _run(capsys, [cmd, SCENE, "--cpu"] + flags)
         assert rc != 0 and "ROADMAP" in err and item in err, err
         return
@@ -181,6 +188,20 @@ def test_refused_flags_name_their_roadmap_item(capsys, cmd, flags, item):
     want = _outcome(jax_cli.main, capsys, argv)
     got = _outcome(cli.main, capsys, argv)
     assert got == want, (got, want)
+
+
+@pytest.mark.parametrize("flags", RUN_WITH_CPU, ids=["impl-matmul", "no-fused-arvo"])
+@pytest.mark.parametrize("cmd", ["render", "inverse"])
+def test_cpu_only_flags_are_refused_on_the_card(capsys, monkeypatch, cmd, flags):
+    """Without ``--cpu`` the plain intersection and the plain Arvo pick
+    would replace K1 / K2 / K3 on the card's path: refused, naming the
+    ROADMAP item, before any scene loads."""
+    def no_load(args):
+        raise AssertionError("the scene loaded before the refusal")
+
+    monkeypatch.setattr(cli, "_load_scene", no_load)
+    rc, _, err = _run(capsys, [cmd, SCENE] + flags)
+    assert rc != 0 and "ROADMAP" in err and "Do not port" in err and "--cpu" in err, err
 
 
 def test_fused_arvo_needs_the_card(capsys):

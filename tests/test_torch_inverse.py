@@ -232,3 +232,50 @@ def test_grad_matches_finite_difference_expectation(cornell_scene, estimator):
         sem = float(np.std(fds) / np.sqrt(len(keys)))
         tol = 0.12 * max(abs(fd), abs(an)) + 4.0 * sem + 2e-2
         assert abs(fd - an) <= tol, (estimator, field, fd, an, sem)
+
+
+@pytest.mark.slow
+def test_inverse_rendering_joint_four_families(cornell_scene, veach_scene):
+    """tests/test_diff.py's joint recovery on the port, with its budgets
+    and gates: kd + ks + ns + emission optimised together (nothing
+    frozen); kd / ks / emission must recover on cornell, ks / ns /
+    emission on veach-mis."""
+
+    def joint(jax_scene, wh, steps, rays, lr, clip, seed):
+        scene = scene_from_arrays(scene_arrays(jax_scene), wh[0], wh[1], device="cpu")
+        cfg = RenderConfig(spp=1, estimator="mis", max_depth=3, seed=0)
+        m = scene.materials
+        init = dataclasses.replace(
+            m,
+            kd=torch.clamp(m.kd + 0.15 * (m.kd.sum(-1, keepdim=True) > 0), 0.02, 0.95),
+            ks=torch.clamp(m.ks - 0.3 * (m.ks > 0), 0.0, 0.95),
+            ns=m.ns * 0.4,
+            emission=m.emission * 0.5,
+        )
+        r = inverse.recover_materials(scene, init, cfg, steps=steps, lr=lr, rays_per_step=rays,
+                                      seed=seed, loss_clip=clip).materials
+        m, init, r = ({f: getattr(x, f).numpy() for f in inverse.FAMILIES} for x in (m, init, r))
+        spec = m["ks"].sum(1) > 0
+        lit = m["emission"].sum(1) > 0
+        vis = (m["kd"].sum(1) > 0) & ~lit
+        mae = lambda a, b, k: float(np.abs(a - b)[k].mean())  # noqa: E731
+        return {
+            "kd": (mae(init["kd"], m["kd"], vis), mae(r["kd"], m["kd"], vis)),
+            "ks": (mae(init["ks"], m["ks"], spec), mae(r["ks"], m["ks"], spec)),
+            "ns_log": (float(np.abs(np.log(init["ns"] / m["ns"]))[spec].mean()),
+                       float(np.abs(np.log(r["ns"] / m["ns"]))[spec].mean())),
+            "em_rel": (0.5, float((np.abs(r["emission"].sum(1) - m["emission"].sum(1))[lit]
+                                   / m["emission"].sum(1)[lit]).mean())),
+        }
+
+    c = joint(cornell_scene, (32, 32), 250, 512, 0.08, None, 2)
+    print("cornell", c)
+    assert c["kd"][1] < 0.25 * c["kd"][0], c["kd"]
+    assert c["ks"][1] < 0.6 * c["ks"][0], c["ks"]
+    assert c["em_rel"][1] < 0.25 * c["em_rel"][0], c["em_rel"]
+
+    v = joint(veach_scene, (48, 27), 300, 648, 0.06, 5.0, 2)
+    print("veach", v)
+    assert v["ks"][1] < 0.43 * v["ks"][0], v["ks"]
+    assert v["ns_log"][1] < 0.45 * v["ns_log"][0], v["ns_log"]
+    assert v["em_rel"][1] < 0.34 * v["em_rel"][0], v["em_rel"]
