@@ -8,8 +8,9 @@ contract and definitions. stdout holds ONE JSON line, {"metric":
 "Mrays/s/chip", "value": ..., "unit": "Mrays/s", "vs_baseline": ...};
 stderr holds one ``# {...}`` line of bookkeeping with ``bench.py``'s keys,
 plus ``power_limit`` (nvidia-smi; null on the CPU), ``lanes`` and
-``launches`` (each kernel's launches in the last timed rep; 0 on the CPU,
-where the plain versions run).
+``launches`` (each kernel's launches, K1-K6, in the last timed rep; 0 on
+the CPU, where the plain versions run; the loop's replays of its CUDA graph
+count the kernels they launch).
 
 Definitions
 -----------
@@ -100,13 +101,9 @@ def _power_limit():
 
 
 def _launches() -> dict:
-    from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda, intersect_cuda
+    from monte_carlo_path_tracing_tpu_torch.ops import launches
 
-    return {"K1 nearest_hit": intersect_cuda.nearest_hit.launches,
-            "K2 occluded": intersect_cuda.occluded.launches,
-            "K3 arvo_select": arvo_cuda.arvo_select.launches,
-            "K4 nearest_hit_culled": intersect_cuda.nearest_hit_culled.launches,
-            "K5 occluded_culled": intersect_cuda.occluded_culled.launches}
+    return launches.counts()
 
 
 def _launches_since(before: dict) -> dict:

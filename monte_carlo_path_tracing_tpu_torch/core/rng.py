@@ -26,6 +26,12 @@ with ``& 0xFFFFFFFF`` masks. What is reproduced (jax 0.9, with
 - ``randint``: two 32-bit draws from the two halves of ``split(key)``,
   combined modulo the span with jax's ``2**32 mod span`` multiplier (the
   uint32 products wrap; here int64 with masks).
+
+The int64 code above is the plain version (``fold_in_plain``,
+``random_bits_plain``, ``uniform_plain``), which CPU keys run. Keys on
+CUDA go to K6 (``ops/rng_cuda.py``, ``csrc/rng.cu``): one launch per
+``fold_in``, ``random_bits`` or ``uniform`` call, bit-equal to the plain
+version; ``split`` and ``randint`` reach it through those.
 """
 
 from __future__ import annotations
@@ -34,6 +40,8 @@ import math
 
 import numpy as np
 import torch
+
+from monte_carlo_path_tracing_tpu_torch.ops import rng_cuda
 
 # Purpose tags — one per independent random decision in the estimators.
 P_LOBE = 0
@@ -73,11 +81,28 @@ def base_key(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
+def _on_card(key: torch.Tensor, name: str) -> bool:
+    """True for K6 (a CUDA key), False for the plain version (a CPU key)."""
+    if key.device.type == "cuda":
+        return True
+    if key.device.type == "cpu":
+        return False
+    raise ValueError(f"{name}: unsupported device {key.device}")
+
+
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` broadcast over batched keys and/or [N] data.
 
     (scalar key [2], scalar data) -> [2]; any [N] operand -> [N, 2]. Data is
-    taken modulo 2**32, as jax's uint32 conversion does."""
+    taken modulo 2**32, as jax's uint32 conversion does. CUDA keys: K6;
+    CPU keys: :func:`fold_in_plain`."""
+    if _on_card(key, "fold_in"):
+        return rng_cuda.fold_in(key, data)
+    return fold_in_plain(key, data)
+
+
+def fold_in_plain(key: torch.Tensor, data) -> torch.Tensor:
+    """The plain version of :func:`fold_in`: threefry in int64 torch ops."""
     d = data.to(torch.int64) & _M32 if torch.is_tensor(data) else int(data) & _M32
     y0, y1 = threefry2x32(key[..., 0], key[..., 1], 0, d)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
@@ -111,7 +136,14 @@ def random_bits(key: torch.Tensor, shape, row_offset: int = 0) -> torch.Tensor:
     ``row_offset`` r0 makes a scalar key's draw rows [r0, r0 + shape[0])
     of the same draw over more rows, bit for bit: the counts start at
     ``r0 * prod(shape[1:])``. A batched key ignores it (each lane's draw
-    is its own)."""
+    is its own). CUDA keys: K6; CPU keys: :func:`random_bits_plain`."""
+    if _on_card(key, "random_bits"):
+        return rng_cuda.random_bits(key, shape, row_offset)
+    return random_bits_plain(key, shape, row_offset)
+
+
+def random_bits_plain(key: torch.Tensor, shape, row_offset: int = 0) -> torch.Tensor:
+    """The plain version of :func:`random_bits`."""
     shape = tuple(shape)
     n = math.prod(shape)
     start = row_offset * math.prod(shape[1:]) if key.dim() == 1 else 0
@@ -127,14 +159,23 @@ def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0,
             row_offset: int = 0) -> torch.Tensor:
     """f32 uniform draw, bit-equal to ``jax.random.uniform``. A batched
     [N, 2] key draws ``shape[1:]`` per lane (``shape[0]`` must equal N);
-    a scalar key's ``row_offset`` is :func:`random_bits`'s."""
+    a scalar key's ``row_offset`` is :func:`random_bits`'s. CUDA keys: one
+    K6 launch; CPU keys: :func:`uniform_plain`."""
+    if _on_card(key, "uniform"):
+        return rng_cuda.uniform(key, shape, minval, maxval, row_offset)
+    return uniform_plain(key, shape, minval, maxval, row_offset)
+
+
+def uniform_plain(key: torch.Tensor, shape, minval=0.0, maxval=1.0,
+                  row_offset: int = 0) -> torch.Tensor:
+    """The plain version of :func:`uniform`."""
     shape = tuple(shape)
     if key.dim() == 1:
-        bits = random_bits(key, shape, row_offset)
+        bits = random_bits_plain(key, shape, row_offset)
     else:
         if shape[0] != key.shape[0]:
             raise ValueError(f"batched key {tuple(key.shape)} vs shape {shape}")
-        bits = random_bits(key, shape[1:])
+        bits = random_bits_plain(key, shape[1:])
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     if minval == 0.0 and maxval == 1.0:
         return f  # f * 1 + 0 and max(0, f) are exact no-ops

@@ -1,0 +1,106 @@
+"""The regeneration loop's iteration, captured once as a CUDA graph and
+replayed.
+
+Counterpart of what ``jax.jit`` gives the JAX loop: the JAX renderer jits
+``render_regen`` (``monte_carlo_path_tracing_tpu/render/renderer.py``), whose
+loop is a ``lax.while_loop`` (``integrator/regen.py``), so an iteration is
+one compiled program that never returns to the host. Here, on CUDA tensors,
+:class:`GraphedLoop` runs the loop's iteration function (which reads and
+writes one dict of tensors in place, ``regen.regen_loop``) as follows:
+
+1. the first iteration eagerly, on a side stream: the warm-up, which loads
+   the kernel library (nvcc must never run inside a capture) and lets the
+   caching allocator settle, as ``torch.cuda.graphs`` requires;
+2. the second is captured into a ``torch.cuda.CUDAGraph`` (capturing runs
+   nothing) and replayed;
+3. every later iteration is one ``replay()``.
+
+The loop's condition stays on the host: one read a replay, the ``cond`` of
+JAX's while_loop. One graph serves one ``render_regen`` call; its private
+memory pool holds one iteration's temporaries and goes with it. A capture
+that fails raises; nothing falls back to the eager loop.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable
+
+import torch
+
+from monte_carlo_path_tracing_tpu_torch.ops import launches
+
+
+def use_graph(graph: bool | None, device: torch.device) -> bool:
+    """Whether a loop on ``device`` is captured: ``None`` captures on CUDA
+    and runs eagerly elsewhere; ``False`` runs eagerly; ``True`` captures
+    and raises off CUDA."""
+    if graph is None:
+        return device.type == "cuda"
+    if graph and device.type != "cuda":
+        raise ValueError(f"graph=True captures a CUDA graph: the tensors are on {device}")
+    return bool(graph)
+
+
+class CapturedStep:
+    """``step()`` captured as a graph: :meth:`replay` runs it and adds the
+    kernels' launches of one captured step to their counters (the wrappers
+    ran once, at capture, where nothing launched). ``graph`` and
+    ``capture`` (a context manager factory taking the graph) default to
+    ``torch.cuda.CUDAGraph()`` and ``torch.cuda.graph``; ``seconds`` is the
+    wall of capture and instantiation."""
+
+    def __init__(self, step: Callable[[], None], graph=None,
+                 capture: Callable[..., contextlib.AbstractContextManager] | None = None):
+        self.graph = torch.cuda.CUDAGraph() if graph is None else graph
+        capture = torch.cuda.graph if capture is None else capture
+        before = launches.counts()
+        t0 = time.perf_counter()
+        try:
+            with capture(self.graph):
+                step()
+        finally:
+            after = launches.counts()
+            launches.restore(before)
+        self.seconds = time.perf_counter() - t0
+        self.delta = {k: after[k] - before[k] for k in before}
+
+    def replay(self) -> None:
+        self.graph.replay()
+        launches.add(self.delta)
+
+
+class GraphedLoop:
+    """Calls of ``step`` as a captured loop: the first runs eagerly on a side
+    stream, the second captures (``capture(step)``, a :class:`CapturedStep`
+    by default) and replays, every later one replays."""
+
+    def __init__(self, step: Callable[[], None], device: torch.device,
+                 capture: Callable[[Callable[[], None]], CapturedStep] = CapturedStep):
+        self.step = step
+        self.device = device
+        self.capture = capture
+        self.calls = 0
+        self.captured: CapturedStep | None = None
+
+    @property
+    def capture_seconds(self) -> float:
+        return 0.0 if self.captured is None else self.captured.seconds
+
+    def warm_up(self) -> None:
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self.step()
+        main.wait_stream(side)
+
+    def __call__(self) -> None:
+        self.calls += 1
+        if self.calls == 1:
+            self.warm_up()
+            return
+        if self.captured is None:
+            self.captured = self.capture(self.step)
+        self.captured.replay()

@@ -10,8 +10,11 @@ so the estimate is a function of the seed alone, invariant to lane count
 and launch splitting, and consumes the same streams as the JAX package.
 
 - :func:`render_regen`: the loop. The JAX ``lax.while_loop`` becomes a
-  Python loop over a dict of [C] tensors; it stops when no sample is left
-  and no lane is alive. Per bounce it runs K1 (extension rays), K3 (Arvo
+  Python loop whose iteration (:func:`regen_loop`) writes a dict of [C]
+  tensors in place; on CUDA it is captured once as a CUDA graph and
+  replayed (``integrator/graph.py``, what ``jax.jit`` gives JAX's loop).
+  It stops when no sample is left and no lane is alive. Per bounce it
+  draws through K6 (threefry) and runs K1 (extension rays), K3 (Arvo
   light pick) and K2 (shadow rays) when the scene's tensors are on CUDA,
   their plain versions on the CPU. Lanes restart as camera rays, or, with
   ``seed_mode``, resume at depth 1 from the pre-pass's seeds. With
@@ -41,12 +44,14 @@ Forward-only, like the JAX loop.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple
 
 import torch
 
 from monte_carlo_path_tracing_tpu_torch.core import rng, vecmath as vm
 from monte_carlo_path_tracing_tpu_torch.integrator import common
+from monte_carlo_path_tracing_tpu_torch.integrator import graph as graph_mod
 from monte_carlo_path_tracing_tpu_torch.integrator.wavefront import (
     _direct_term, _light_pdf_along, _light_pdf_of_hit, _nee_term, _sample_light, _shadow_ray,
 )
@@ -388,25 +393,26 @@ def render_regen_cached(
     pixel_offset: int = 0,
     pixel_stride: int = 1,
     spp0: int = 0,
+    graph: bool | None = None,
 ):
     """Primary-cache render: :func:`primary_prepass`, then the loop over
-    its seeds (depth >= 1 only). The same estimate and streams as
-    :func:`render_regen` over ``n_pix * spp_rounds`` samples; returns the
-    same (fb, nrays, iters, stats) with logical rays, the physical count in
-    ``stats.rays_physical``."""
+    its seeds (depth >= 1 only; ``graph`` as in :func:`render_regen`). The
+    same estimate and streams as :func:`render_regen` over ``n_pix *
+    spp_rounds`` samples; returns the same (fb, nrays, iters, stats) with
+    logical rays, the physical count in ``stats.rays_physical``."""
     seeds, seed_count, n_log, n_phys = primary_prepass(
         scene, cfg, base_key, n_pix, spp_cap, spp_rounds,
         pixel_offset=pixel_offset, pixel_stride=pixel_stride, spp0=spp0,
     )
     fb, nrays_loop, iters, stats = render_regen(
         scene, cfg, base_key, n_pix, seed_count, lanes=lanes, pixel_offset=pixel_offset,
-        pixel_stride=pixel_stride, spp0=spp0, seed_mode=seeds,
+        pixel_stride=pixel_stride, spp0=spp0, seed_mode=seeds, graph=graph,
     )
     stats = stats._replace(rays_physical=n_phys + int(nrays_loop))
     return fb, n_log + nrays_loop, iters, stats
 
 
-def render_regen(
+def regen_loop(
     scene: Scene,
     cfg: RenderConfig,
     base_key: torch.Tensor,
@@ -417,36 +423,20 @@ def render_regen(
     pixel_stride: int = 1,
     spp0: int = 0,
     seed_mode: SeedMode | None = None,
-    on_iter: Callable[[dict], None] | None = None,
 ):
-    """Render ``total_samples`` paths distributed round-robin over
-    ``n_pix`` local pixels (local pixel i is global pixel
-    i * pixel_stride + pixel_offset; local sample s is spp round
-    spp0 + s // n_pix). Runs on the scene's device.
+    """The loop of :func:`render_regen` (same arguments) as (state, iterate,
+    more):
 
-    With ``seed_mode`` (set by :func:`render_regen_cached`) free lanes pull
-    the pre-pass's continuation seeds instead of camera samples — resuming
-    at depth 1 with the cached per-pixel interaction — ``total_samples`` is
-    the seed count and the framebuffer starts at the pre-pass's depth-0
-    radiance.
-
-    With ``cfg.mis_blocker_compat`` (MIS) the loop also keeps the
-    blocker-chain queue: ``lanes + 1`` rows, the last one the sink of
-    spilled writes. Chains enqueued in an iteration are ranked by the
-    cumulative count of spawning lanes; free lanes then pull chains from the
-    top of the queue (last in, first out, from the buffers as this
-    iteration's enqueue left them) before new samples, and the loop runs
-    until no sample, live lane or queued chain is left. Chain ``k`` of the
-    launch has sample id ``-1 - k`` and draws from
-    fold(fold(fold(base, _CHAIN_TAG), spp0), k), disjoint from every real
-    stream.
-
-    ``on_iter(state)``, when given, sees the loop state (a dict of
-    tensors, the queue's included) before the first iteration and after
-    each one.
-
-    Returns (framebuffer_sum [n_pix, 3] f32, logical rays traced (int64
-    tensor: extension + shadow rays of live lanes), iterations, stats)."""
+    - ``state``: a dict of tensors, the lanes (``LANE_ARRAYS``), the
+      blocker queue (``buf_*``, ``buf_count``, ``chain_counter``,
+      ``spilled``) when it runs, ``counter`` (samples pulled), ``nrays``
+      (logical rays) and ``fb`` [n_pix + lanes, 3] (rows past n_pix: the
+      live lanes' dummy rows);
+    - ``iterate(state)``: one iteration, which reads ``state`` and writes
+      every tensor of it in place and touches nothing else, so that it can
+      be captured as a CUDA graph and replayed (``integrator/graph.py``);
+    - ``more(state)``: the loop's condition (a sample left, a lane alive or
+      a chain queued), one host read."""
     _check_supported(cfg)
     blocker = bool(cfg.mis_blocker_compat) and cfg.estimator == EST_MIS
     if blocker and seed_mode is not None:
@@ -504,24 +494,23 @@ def render_regen(
                 seed_mode.cache_ns[pixel], seed_mode.cache_tri[pixel], seed_mode.tp[sidx],
                 seed_mode.pdf[sidx], seed_mode.cache_wsum[pixel])
 
-    zero3 = torch.zeros((C, 3), device=dev)
+    # Every entry its own buffer: iterate() writes them in place.
+    i64 = dict(dtype=torch.int64, device=dev)
     z_up = torch.zeros((C, 3), device=dev)
     z_up[:, 2] = 1.0
-    zero = torch.zeros(C, device=dev)
-    i64 = dict(dtype=torch.int64, device=dev)
-    st = {
+    state = {
         "alive": torch.zeros(C, dtype=torch.bool, device=dev),
         "pixel": torch.zeros(C, **i64), "sample": torch.zeros(C, **i64),
         "depth": torch.zeros(C, **i64),
-        "ro": zero3, "rd": z_up,
+        "ro": torch.zeros((C, 3), device=dev), "rd": z_up.clone(),
         "excl": torch.full((C,), ops_intersect.NO_HIT, dtype=torch.int32, device=dev),
-        "tp": torch.ones((C, 3), device=dev), "L": zero3,
-        "prev_pb": torch.ones(C, device=dev), "prev_p": zero3, "prev_ns": z_up,
-        "prev_w": zero,
+        "tp": torch.ones((C, 3), device=dev), "L": torch.zeros((C, 3), device=dev),
+        "prev_pb": torch.ones(C, device=dev), "prev_p": torch.zeros((C, 3), device=dev),
+        "prev_ns": z_up, "prev_w": torch.zeros(C, device=dev),
     }
     if blocker:
         # The chain queue: C + 1 rows, row C the sink of spilled writes.
-        st.update({
+        state.update({
             "buf_ro": torch.zeros((C + 1, 3), device=dev),
             "buf_rd": torch.zeros((C + 1, 3), device=dev),
             "buf_tp": torch.zeros((C + 1, 3), device=dev),
@@ -534,32 +523,29 @@ def render_regen(
             "chain_counter": torch.zeros((), **i64),
             "spilled": torch.zeros((), **i64),
         })
-    counter = torch.zeros((), **i64)
-    nrays = torch.zeros((), **i64)
+    state["counter"] = torch.zeros((), **i64)
+    state["nrays"] = torch.zeros((), **i64)
     # Dead lanes write their pixel row, live lanes their own dummy row
     # n_pix + lane, which is dropped at the end.
-    fb = torch.zeros((n_pix + C, 3), device=dev)
+    state["fb"] = torch.zeros((n_pix + C, 3), device=dev)
     if seed_mode is not None:
-        fb[:n_pix] = seed_mode.fb_pre
-    iters = 0
-    if on_iter is not None:
-        on_iter(st)
+        state["fb"][:n_pix] = seed_mode.fb_pre
+    zero = torch.zeros(C, device=dev)
 
-    def more():
-        m = (counter < total_samples) | st["alive"].any()
+    def more(st) -> bool:
+        m = (st["counter"] < total_samples) | st["alive"].any()
         return bool(m | (st["buf_count"] > 0)) if blocker else bool(m)
 
-    while more():
-        iters += 1
-        if do_sort:
-            st = sort_lanes(st, scene_lo, scene_inv)
+    def iterate(state) -> None:
+        st = sort_lanes(state, scene_lo, scene_inv) if do_sort else state
         alive, depth, tp, L = st["alive"], st["depth"], st["tp"], st["L"]
+        counter, fb = st["counter"], st["fb"]
         lk_d = rng.fold_in(lane_stream(st["sample"], st["pixel"]), depth)
 
         # ---- one bounce for live lanes (wavefront._run_mis / _run_split /
         #      _run_brdf semantics) ----
         hit = ops_intersect.intersect(accel, st["ro"], st["rd"], st["excl"], cull=loop_cull)
-        nrays += alive.sum()
+        nrays = alive.sum()
         si = common.gather_interaction(scene, hit, st["rd"], tri_to_light)
         cont = alive & hit.valid & si.front
 
@@ -597,7 +583,7 @@ def render_regen(
         if est in (EST_MIS, EST_SPLIT):
             ls, ws = _sample_light(rng.fold_in(lk_d, rng.P_LIGHT_SELECT), scene, cfg, si,
                                    consts=consts, table=table)
-            nrays += cont.sum()
+            nrays = nrays + cont.sum()
             if est == EST_MIS:
                 wsum = zero if ws is None else ws
                 if blocker:
@@ -646,9 +632,7 @@ def render_regen(
             for k, v in (("ro", si.p), ("rd", wl_sp), ("tp", chain_tp), ("pixel", st["pixel"]),
                          ("excl", si.tri_id), ("sample", -1 - (st["chain_counter"] + rank_s)),
                          ("depth", depth + 1)):
-                buf = st["buf_" + k].clone()
-                buf[idx_w] = v
-                out["buf_" + k] = buf
+                st["buf_" + k][idx_w] = v
             n_spawn = can.sum()
             buf_count = st["buf_count"] + n_spawn
             out["chain_counter"] = st["chain_counter"] + n_spawn
@@ -673,13 +657,12 @@ def render_regen(
             tk = take if cur.dim() == 1 else take[:, None]
             if blocker:
                 tc = take_chain if cur.dim() == 1 else take_chain[:, None]
-                cur = torch.where(tc, out["buf_" + queued][src], cur)
+                cur = torch.where(tc, st["buf_" + queued][src], cur)
             return torch.where(tk, new, cur)
 
         t1 = take[:, None]
         restart = take if not blocker else take | take_chain
-        st = {
-            **out,
+        out.update({
             "alive": cont | restart,
             "pixel": sel(pixel_new, "pixel", st["pixel"]),
             "sample": sel(sample_new, "sample", st["sample"]),
@@ -695,11 +678,81 @@ def render_regen(
             "prev_p": torch.where(t1, ro_new, si.p),
             "prev_ns": torch.where(t1, ns_new, si.ns),
             "prev_w": torch.where(take, wsum_new, wsum),
-        }
-        counter = counter + take.sum()
+            "counter": counter + take.sum(),
+            "nrays": st["nrays"] + nrays,
+        })
+        for k, v in out.items():
+            state[k].copy_(v)
+
+    return state, iterate, more
+
+
+def render_regen(
+    scene: Scene,
+    cfg: RenderConfig,
+    base_key: torch.Tensor,
+    n_pix: int,
+    total_samples: int,
+    lanes: int = 1 << 16,
+    pixel_offset: int = 0,
+    pixel_stride: int = 1,
+    spp0: int = 0,
+    seed_mode: SeedMode | None = None,
+    on_iter: Callable[[dict], None] | None = None,
+    graph: bool | None = None,
+):
+    """Render ``total_samples`` paths distributed round-robin over
+    ``n_pix`` local pixels (local pixel i is global pixel
+    i * pixel_stride + pixel_offset; local sample s is spp round
+    spp0 + s // n_pix). Runs on the scene's device.
+
+    With ``seed_mode`` (set by :func:`render_regen_cached`) free lanes pull
+    the pre-pass's continuation seeds instead of camera samples — resuming
+    at depth 1 with the cached per-pixel interaction — ``total_samples`` is
+    the seed count and the framebuffer starts at the pre-pass's depth-0
+    radiance.
+
+    With ``cfg.mis_blocker_compat`` (MIS) the loop also keeps the
+    blocker-chain queue: ``lanes + 1`` rows, the last one the sink of
+    spilled writes. Chains enqueued in an iteration are ranked by the
+    cumulative count of spawning lanes; free lanes then pull chains from the
+    top of the queue (last in, first out, from the buffers as this
+    iteration's enqueue left them) before new samples, and the loop runs
+    until no sample, live lane or queued chain is left. Chain ``k`` of the
+    launch has sample id ``-1 - k`` and draws from
+    fold(fold(fold(base, _CHAIN_TAG), spp0), k), disjoint from every real
+    stream.
+
+    ``graph``: ``None`` (the default) captures the iteration as a CUDA
+    graph on CUDA tensors and replays it (``integrator/graph.py``: the
+    first iteration eager, the second captured, one replay each after) and
+    runs it eagerly on the CPU; ``False`` runs it eagerly; ``True`` on CPU
+    tensors raises. Both give the same iterations, rays and framebuffer up
+    to the order of ``index_add_``'s atomic additions.
+
+    ``on_iter(state)``, when given, sees the loop state (the dict of
+    :func:`regen_loop`) before the first iteration and after each one. Its
+    tensors are the loop's own buffers, which the next iteration (or
+    replay) overwrites: a caller that keeps them clones them.
+
+    Returns (framebuffer_sum [n_pix, 3] f32, logical rays traced (int64
+    tensor: extension + shadow rays of live lanes), iterations, stats)."""
+    captured = graph_mod.use_graph(graph, scene.device)
+    st, iterate, more = regen_loop(scene, cfg, base_key, n_pix, total_samples, lanes=lanes,
+                                   pixel_offset=pixel_offset, pixel_stride=pixel_stride,
+                                   spp0=spp0, seed_mode=seed_mode)
+    step = functools.partial(iterate, st)
+    if captured:
+        step = graph_mod.GraphedLoop(step, scene.device)
+    iters = 0
+    if on_iter is not None:
+        on_iter(st)
+    while more(st):
+        iters += 1
+        step()
         if on_iter is not None:
             on_iter(st)
-
-    stats = (RegenStats(spilled=int(st["spilled"]), chains=int(st["chain_counter"])) if blocker
-             else RegenStats())
-    return fb[:n_pix], nrays, iters, stats
+    blocker = "spilled" in st
+    stats = RegenStats(spilled=int(st["spilled"]) if blocker else 0,
+                       chains=int(st["chain_counter"]) if blocker else 0)
+    return st["fb"][:n_pix], st["nrays"], iters, stats

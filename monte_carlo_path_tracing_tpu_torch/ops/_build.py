@@ -33,6 +33,7 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _LL, _ULL = ctypes.c_uint, ctypes.c_longlong, ctypes.c_ulonglong
 #: C entry points and their argument types; each returns a cudaError_t.
 SIGNATURES = {
     # K1 / K2: ..., fma (1: fused dots), stream
@@ -43,6 +44,10 @@ SIGNATURES = {
     "mcpt_nearest_culled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                             _P, _P, _P, _P, _I, _P),
     "mcpt_occluded_culled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _I, _P),
+    # K6: key, data, data is int64, scalar data, 13 batch values, total, out, stream
+    "mcpt_threefry_fold": (_P, _P, _I, _U, _P, _LL, _P, _P),
+    # K6: key, key row stride, word stride, n, start, total, mode, lo, span, out, stream
+    "mcpt_threefry_bits": (_P, _LL, _LL, _LL, _ULL, _LL, _I, _F, _F, _P, _P),
 }
 
 

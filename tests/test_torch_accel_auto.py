@@ -65,8 +65,10 @@ def test_lane_sort_key_and_permutation_match_jax(cornell_scene, monkeypatch):
     orig = regen.sort_lanes
 
     def record(st, lo, inv):
+        # The loop's state is its own buffers, written in place by the
+        # iteration that sorts them: keep a copy.
         out = orig(st, lo, inv)
-        states.append((st, out, lo, inv))
+        states.append(({k: v.clone() for k, v in st.items()}, out, lo, inv))
         return out
 
     monkeypatch.setattr(regen, "sort_lanes", record)

@@ -1,9 +1,10 @@
-"""The port's CUDA kernels K1-K5 against their plain torch versions (K4 / K5
+"""The port's CUDA kernels K1-K6 against their plain torch versions (K4 / K5
 also against K1 / K2), and the port's renders on the card against the same
 renders on the CPU: the regeneration render uncached and cached, bathroom
 with accel="auto" (K4 / K5 in the loop), the fixed-depth render_image,
 pixel_grad, recover_materials, and the sharded regeneration render at
-world size 1 on NCCL; utils.profiling.device_trace's trace of K1.
+world size 1 on NCCL; utils.profiling.device_trace's trace of K1; the
+regeneration loop captured as a CUDA graph against the eager loop.
 
 Needs an NVIDIA GPU: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where only PyTorch is installed:
@@ -18,13 +19,15 @@ import numpy as np
 import pytest
 import torch
 
-from monte_carlo_path_tracing_tpu_torch.ops import _build, arvo_cuda, intersect_cuda
+from monte_carlo_path_tracing_tpu_torch.ops import _build, arvo_cuda, intersect_cuda, launches
+from monte_carlo_path_tracing_tpu_torch.ops import rng_cuda
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.ops import intersect_ref
 from monte_carlo_path_tracing_tpu_torch.core import rng
 from monte_carlo_path_tracing_tpu_torch.diff import grad as dgrad
 from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
 from monte_carlo_path_tracing_tpu_torch.diff.inverse import recover_materials
+from monte_carlo_path_tracing_tpu_torch.integrator import regen
 from monte_carlo_path_tracing_tpu_torch.render.camera import generate_rays
 from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image, render_image_regen
 from monte_carlo_path_tracing_tpu_torch.scene import load_scene
@@ -820,3 +823,81 @@ def test_device_trace_records_the_kernels(dev, tmp_path):
         with device_trace(str(tmp_path / "empty"), device="cuda"):
             torch.ones(3).sum()
     assert not os.listdir(tmp_path / "empty")
+
+
+def _k6_case(case, dev):
+    """(K6 call, plain call) of one of the port's threefry call shapes on
+    the card, keys and data from numpy seeds with 0 and 2**32 - 1 in them."""
+    g = np.random.default_rng(len(case))
+    n = 65_536
+    words = g.integers(0, 1 << 32, size=(n, 2), dtype=np.uint64)
+    words[:3] = [[0, 0], [0xFFFFFFFF, 0xFFFFFFFF], [0, 0xFFFFFFFF]]
+    keys = torch.from_numpy(words.astype(np.int64)).to(dev)
+    data = torch.from_numpy(g.integers(0, 1 << 32, size=n).astype(np.int64)).to(dev)
+    data[:2] = torch.tensor([0, 0xFFFFFFFF])
+    key = keys[1]
+    if case == "scalar_key_x_N":
+        return (lambda: rng_cuda.fold_in(key, data)), (lambda: rng.fold_in_plain(key, data))
+    if case == "N_keys_x_scalar":
+        return (lambda: rng_cuda.fold_in(keys, 4)), (lambda: rng.fold_in_plain(keys, 4))
+    if case == "N_keys_x_N_int32":
+        d32 = data.to(torch.int32)
+        return (lambda: rng_cuda.fold_in(keys, d32)), (lambda: rng.fold_in_plain(keys, d32))
+    if case == "R1_keys_x_1C":
+        kr, dc = keys[:8, None, :], data[None, :32_768]
+        return (lambda: rng_cuda.fold_in(kr, dc)), (lambda: rng.fold_in_plain(kr, dc))
+    if case == "N_keys_x_k_uniform":
+        return ((lambda: rng_cuda.uniform(keys, (n, 2), -0.5, 0.5)),
+                (lambda: rng.uniform_plain(keys, (n, 2), -0.5, 0.5)))
+    if case == "scalar_key_x_Nk_offset_past_2_32":
+        return ((lambda: rng_cuda.random_bits(key, (n, 2), row_offset=(1 << 31) - 7)),
+                (lambda: rng.random_bits_plain(key, (n, 2), row_offset=(1 << 31) - 7)))
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["scalar_key_x_N", "N_keys_x_scalar", "N_keys_x_N_int32",
+                                  "R1_keys_x_1C", "N_keys_x_k_uniform",
+                                  "scalar_key_x_Nk_offset_past_2_32"])
+def test_k6_matches_plain(dev, case):
+    """K6 is the plain int64 threefry bit for bit, one launch a call."""
+    k6, plain = _k6_case(case, dev)
+    n0 = rng_cuda.threefry.launches
+    a = k6()
+    assert rng_cuda.threefry.launches == n0 + 1
+    b = plain()
+    torch.cuda.synchronize()
+    assert a.dtype == b.dtype and a.shape == b.shape
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    assert torch.equal(a, b)
+
+
+def _veach_regen(dev, cached, graph):
+    """Veach 64^2 x 4 spp through render_regen(_cached) on the card:
+    (framebuffer, rays, iterations, launches)."""
+    sc = _scene("veach-mis", 64).to(dev)
+    cfg = RenderConfig(width=64, height=64, spp=4, estimator="mis", max_depth=16, seed=3)
+    key = rng.base_key(3, device=dev)
+    before = launches.counts()
+    if cached:
+        fb, rays, iters, _ = regen.render_regen_cached(sc, cfg, key, 4096, 4, 4, lanes=4096,
+                                                       graph=graph)
+    else:
+        fb, rays, iters, _ = regen.render_regen(sc, cfg, key, 4096, 4 * 4096, lanes=2048,
+                                                graph=graph)
+    after = launches.counts()
+    return fb.cpu().numpy(), int(rays), iters, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("cached", [True, False])
+def test_captured_loop_matches_eager(dev, cached):
+    """The loop captured as a CUDA graph (the default on the card) against
+    graph=False: iterations and rays equal, the framebuffer within rtol
+    2e-4 / atol 1e-5 (index_add_'s atomics add in another order), and every
+    kernel's launch counter equal: replays count the captured launches."""
+    g = _veach_regen(dev, cached, None)
+    e = _veach_regen(dev, cached, False)
+    assert g[2] == e[2] and g[1] == e[1]
+    np.testing.assert_allclose(g[0], e[0], rtol=2e-4, atol=1e-5)
+    assert g[3] == e[3]
+    assert g[3]["K6 threefry"] > 0 and g[3]["K1 nearest_hit"] == g[2]
