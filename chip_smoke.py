@@ -50,24 +50,30 @@ exits non-zero without printing a result:
    in each), K1-K5 found in the trace by their ``__global__`` names at
    counts equal to the wrappers' counters, and the image against the
    untraced one (summation order only);
-6c. graph: render_regen's loop captured as a CUDA graph (the default on
-   the card) against ``graph=False``: the e2e cached cell in turns
-   (captured, eager, eager, captured) and the e2e cell (captured, eager):
-   iterations, rays and every kernel's launches equal, the framebuffers
-   within rtol 2e-4 / atol 1e-5, seconds, capture seconds, peak memory;
-   the kernel launches of one eager iteration against one replay
+6c. graph: render_regen's loop and the primary prepass's chunks captured
+   as CUDA graphs (the default on the card) against ``graph=False``: the
+   e2e cached cell in turns (captured, eager, eager, captured) and the e2e
+   cell (captured, eager): iterations, rays and every kernel's launches
+   equal, the framebuffers within rtol 2e-4 / atol 1e-5, seconds (the
+   cached cell's prepass and loop apart, by CUDA events), capture
+   seconds, peak memory, and the prepass's overflow tails (none on
+   Veach); the kernel launches of one eager loop iteration against one
+   replay, and of one eager prepass chunk against one replay
    (torch.profiler); a 512^2 x 2 spp cached pair in deterministic mode,
-   bit-equal (where that mode is capturable; phase 14 (d) follows what
-   this finds); the blocker queue on cornell 32^2 x 2 spp and the
-   auto-cull loop on bathroom 1280x720 x 1 spp, captured against eager;
+   prepass and loop captured, bit-equal (where that mode is capturable;
+   phase 14 (d) follows what this finds); the blocker queue on cornell
+   32^2 x 2 spp and the auto-cull loop on bathroom 1280x720 x 1 spp,
+   captured against eager;
 7. two devices: the same entry point renders Veach at 64^2, 4 spp on the
    card and on the CPU, uncached and cached; ray counts and images agree;
 8. end to end, fixed depth (the CLI's default render and the gradient
    path): ``render_image`` at 1024^2, 2 spp, MIS + spherical-triangle NEE,
-   depth 32, ray_chunk 65,536, seed 0; K1-K3 must launch and K4 / K5 must
-   not; the image is held against the cached regeneration render of the
-   same configuration in the same phase (the same streams: no path reaches
-   depth 32);
+   depth 32, ray_chunk 65,536, seed 0, its bounce captured as a CUDA graph
+   (the default) and eager (``graph=False``): K1-K3 must launch, equally
+   in both, and K4 / K5 must not; seconds and ms a bounce of both; the
+   images agree within rtol 2e-4 / atol 1e-5, and the captured one is
+   held against the cached regeneration render of the same configuration
+   in the same phase (the same streams: no path reaches depth 32);
 9. gradient: ``pixel_grad`` through K1-K3 on Veach 64^2 (MIS, depth 4) on
    the card against the same call on the CPU (finite, cosine per material
    field); then one full 65,536-ray chunk of the 1024^2 camera forward and
@@ -803,7 +809,8 @@ def prepass_batches(scene, cfg):
     ops_intersect.intersect, ops_intersect.occluded = intersect, occluded
     try:
         regen.primary_prepass(scene, cfg, rng.base_key(cfg.seed, device=scene.device), n,
-                              cfg.spp, cfg.spp, pixel_offset=FAN_ROW0 * scene.camera.width)
+                              cfg.spp, cfg.spp, pixel_offset=FAN_ROW0 * scene.camera.width,
+                              graph=False)
     finally:
         ops_intersect.intersect, ops_intersect.occluded = orig_i, orig_o
     return rec["fan"], rec["shadow"]
@@ -992,16 +999,21 @@ def fixed_depth_cfg() -> RenderConfig:
 
 
 def phase_fixed_depth(scene, kernels):
-    """render_image (the fixed-depth wavefront) at the full width; K1-K3
-    launch, K4 / K5 do not; the image agrees with the cached regen render
-    of the same configuration, rendered after it. The wall time is split
-    into bounces (one K1 launch each) and the kernels' share, launches x
-    their time at 65,536 rays from ``kernels``."""
+    """render_image (the fixed-depth wavefront) at the full width, its
+    bounce captured as a CUDA graph (the default on the card) and eager
+    (``graph=False``): K1-K3 launch, equally in both, K4 / K5 do not; the
+    images agree within GRAPH_RTOL / GRAPH_ATOL; the captured image agrees
+    with the cached regen render of the same configuration, rendered after
+    them. Each wall time is split into bounces (one K1 launch each) and
+    the kernels' share, launches x their time at 65,536 rays from
+    ``kernels``."""
     sc = with_res(scene, RES, RES)
     cfg = fixed_depth_cfg()
-    reset_counters()
-    res = render_image(sc, cfg)
-    launches = counters()
+    runs = {}
+    for graph in (None, False):
+        reset_counters()
+        runs[graph] = (render_image(sc, cfg, graph=graph), counters())
+    (res, launches), (eager, eager_launches) = runs[None], runs[False]
     ref = render_image_regen(sc, cfg, lanes=LANES_CACHED)
     a, b = res.image, ref.image
     assert a.shape == (RES, RES, 3) and np.isfinite(a).all(), "non-finite image"
@@ -1010,25 +1022,36 @@ def phase_fixed_depth(scene, kernels):
     gap = checksum / ref_checksum - 1.0
     n_fine = int((~np.isclose(a, b, rtol=1e-4, atol=1e-5).all(-1)).sum())
     n_div = int((~np.isclose(a, b, rtol=1e-2, atol=1e-3).all(-1)).sum())
+    n_eager = int((~np.isclose(a, eager.image, rtol=GRAPH_RTOL, atol=GRAPH_ATOL)).sum())
+    same = bool(np.array_equal(a, eager.image))
     paths = RES * RES * FD_SPP
     log(f"[e2e fixed-depth] veach {RES}^2 x {FD_SPP} spp, depth {cfg.max_depth}, ray_chunk "
-        f"{cfg.ray_chunk}: {res.seconds:.2f} s, {paths / res.seconds:.0f} paths/s, fb_checksum "
-        f"{checksum:.1f}; launches {launches}")
+        f"{cfg.ray_chunk}: captured {res.seconds:.2f} s, {paths / res.seconds:.0f} paths/s, "
+        f"fb_checksum {checksum:.1f}; launches {launches}")
+    log(f"[e2e fixed-depth] eager (graph=False) {eager.seconds:.2f} s, {paths / eager.seconds:.0f} "
+        f"paths/s; launches {eager_launches}; captured against eager: {n_eager} values beyond "
+        f"rtol {GRAPH_RTOL:g} / atol {GRAPH_ATOL:g}, bit-equal {same}")
     log(f"[e2e fixed-depth] cached regen of the same configuration: {ref.seconds:.2f} s, "
         f"fb_checksum {ref_checksum:.1f}; checksum gap {gap:+.3e} (bound {FD_CHECKSUM_GAP:g}); "
         f"of {RES * RES} pixels {n_fine} beyond rtol 1e-4 / atol 1e-5, {n_div} beyond rtol "
         f"1e-2 / atol 1e-3 (bound {FD_PIXEL_SHARE:.0%})")
     assert all(launches[k] > 0 for k in UNCULLED), f"K1-K3 / K6 did not launch: {launches}"
     assert all(launches[k] == 0 for k in CULLED), f"a culled kernel ran: {launches}"
+    assert all(launches[k] == eager_launches[k] for k in UNCULLED[:3]), \
+        f"captured K1-K3 launches {launches} against eager {eager_launches}"
+    assert res.rays_traced == eager.rays_traced and n_eager == 0, \
+        "captured and eager fixed-depth images disagree"
     chunks = RES * RES * FD_SPP // cfg.ray_chunk
     bounces = launches["K1 nearest_hit"]
-    kernel_s = sum(launches[e["name"]] * e["ms"] for e in kernels) / 1e3
-    log(f"[e2e fixed-depth] {bounces} bounces in {chunks} chunks ({bounces / chunks:.2f} a "
-        f"chunk), {res.seconds / bounces * 1e3:.1f} ms a bounce; K1-K3 launches x their ms at "
-        f"65,536 rays: {kernel_s:.3f} s ({kernel_s / res.seconds:.1%} of the wall)")
+    for tag, r in (("captured", res), ("eager", eager)):
+        kernel_s = sum(launches[e["name"]] * e["ms"] for e in kernels) / 1e3
+        log(f"[e2e fixed-depth] {tag}: {bounces} bounces in {chunks} chunks "
+            f"({bounces / chunks:.2f} a chunk), {r.seconds / bounces * 1e3:.2f} ms a bounce; "
+            f"K1-K3 launches x their ms at 65,536 rays: {kernel_s:.3f} s "
+            f"({kernel_s / r.seconds:.1%} of the wall)")
     assert abs(gap) <= FD_CHECKSUM_GAP, "fixed-depth and regen checksums disagree"
     assert n_div <= FD_PIXEL_SHARE * RES * RES, "fixed-depth and regen images disagree"
-    return launches
+    return launches, dict(captured_s=res.seconds, eager_s=eager.seconds, bounces=bounces)
 
 
 def _pixel_grad(scene, cfg, idx):
@@ -1240,20 +1263,37 @@ def _regen_run(sc, cfg, lanes: int, cached: bool, graph):
     """render_regen_cached (``cached``) or render_regen over every pixel and
     spp of ``cfg``, with ``graph``: the framebuffer on the host, logical
     rays, iterations, host seconds (to the framebuffer on the host), the
-    capture's seconds, peak device memory above the start in MiB, every
-    kernel's launches and the stats."""
+    prepass's and the loop's seconds apart (CUDA events on the stream: the
+    prepass from its start to its end, the loop from there to the
+    framebuffer's copy), the prepass's overflow tails, the captures'
+    seconds (prepass and loop), peak device memory above the start in
+    MiB, every kernel's launches and the stats."""
     dev = sc.device
     n_pix = sc.camera.width * sc.camera.height
     key = rng.base_key(cfg.seed, device=dev)
     loops = []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    rec = {"tails": 0, "prepass": False}
 
     class Recorded(graph_mod.GraphedLoop):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
             loops.append(self)
 
-    orig = graph_mod.GraphedLoop
-    graph_mod.GraphedLoop = Recorded
+    orig = (graph_mod.GraphedLoop, regen.primary_prepass, regen.PrepassLoop.tail)
+
+    def prepass(*a, **kw):
+        ev[0].record()
+        out = orig[1](*a, **kw)
+        ev[1].record()
+        rec["prepass"] = True
+        return out
+
+    def tail(self):
+        rec["tails"] += 1
+        return orig[2](self)
+
+    graph_mod.GraphedLoop, regen.primary_prepass, regen.PrepassLoop.tail = Recorded, prepass, tail
     reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1266,13 +1306,17 @@ def _regen_run(sc, cfg, lanes: int, cached: bool, graph):
         else:
             fb, nrays, iters, stats = regen.render_regen(sc, cfg, key, n_pix, n_pix * cfg.spp,
                                                          lanes=lanes, graph=graph)
+        ev[2].record()
         fb = fb.cpu().numpy()
     finally:
-        graph_mod.GraphedLoop = orig
+        graph_mod.GraphedLoop, regen.primary_prepass, regen.PrepassLoop.tail = orig
     seconds = time.perf_counter() - t0
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-    return dict(fb=fb, rays=int(nrays), iters=iters, seconds=seconds,
-                capture_s=loops[0].capture_seconds if loops else 0.0, peak_mib=peak,
+    split = ((ev[0].elapsed_time(ev[1]) / 1e3, ev[1].elapsed_time(ev[2]) / 1e3)
+             if rec["prepass"] else (0.0, 0.0))
+    return dict(fb=fb, rays=int(nrays), iters=iters, seconds=seconds, prepass_s=split[0],
+                loop_s=split[1], tails=rec["tails"],
+                capture_s=sum(lp.capture_seconds for lp in loops), peak_mib=peak,
                 launches=counters(), stats=stats)
 
 
@@ -1289,28 +1333,25 @@ def _graph_pair(tag, g, e, bit_equal=False):
         f"framebuffer: {off} values beyond rtol {GRAPH_RTOL:g} / atol {GRAPH_ATOL:g}, max |diff| "
         f"{diff:.3g}, bit-equal {same}; launches equal {g['launches'] == e['launches']} "
         f"{g['launches']}")
+    if g["prepass_s"]:
+        log(f"[graph] {tag}: prepass / loop seconds (CUDA events), captured {g['prepass_s']:.4f} "
+            f"/ {g['loop_s']:.4f}, eager {e['prepass_s']:.4f} / {e['loop_s']:.4f}; prepass "
+            f"overflow tails {g['tails']} / {e['tails']}")
     assert g["iters"] == e["iters"] and g["rays"] == e["rays"], f"{tag}: the graph changed the loop"
     assert g["launches"] == e["launches"], f"{tag}: launches {g['launches']} vs {e['launches']}"
+    assert g["tails"] == e["tails"], f"{tag}: prepass tails {g['tails']} vs {e['tails']}"
     assert off == 0, f"{tag}: captured and eager framebuffers disagree"
     assert same or not bit_equal, f"{tag}: not bit-equal in deterministic mode"
     assert g["capture_s"] > 0.0 and e["capture_s"] == 0.0, f"{tag}: captured or not as asked"
 
 
-def _iteration_launches(sc, cfg, lanes: int, cached: bool):
-    """One eager iteration of the loop and one replay of its graph, each
-    traced by torch.profiler after the warm-up iteration: (device events,
-    host launch calls, host ms to the end of the iteration) of each, and
-    under ``wrappers`` each kernel's launches in one iteration."""
+def _step_launches(step, dev):
+    """One eager call of ``step`` (after its warm-up) and one replay of
+    its graph, each traced by torch.profiler: (device events, host launch
+    calls, host ms to the end of the step) of each, and under
+    ``wrappers`` each kernel's launches in one step."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = sc.device
-    n_pix = sc.camera.width * sc.camera.height
-    key = rng.base_key(cfg.seed, device=dev)
-    seeds, total = None, n_pix * cfg.spp
-    if cached:
-        seeds, total, _, _ = regen.primary_prepass(sc, cfg, key, n_pix, cfg.spp, cfg.spp)
-    st, iterate, _ = regen.regen_loop(sc, cfg, key, n_pix, total, lanes=lanes, seed_mode=seeds)
-    step = functools.partial(iterate, st)
     before = counters()
     graph_mod.GraphedLoop(step, dev).warm_up()
     out = {}
@@ -1335,12 +1376,42 @@ def _iteration_launches(sc, cfg, lanes: int, cached: bool):
     return out
 
 
+def _iteration_launches(sc, cfg, lanes: int, cached: bool):
+    """:func:`_step_launches` of one loop iteration (the seeded loop of the
+    cached route after its prepass, or the uncached loop)."""
+    dev = sc.device
+    n_pix = sc.camera.width * sc.camera.height
+    key = rng.base_key(cfg.seed, device=dev)
+    seeds, total = None, n_pix * cfg.spp
+    if cached:
+        seeds, total, _, _ = regen.primary_prepass(sc, cfg, key, n_pix, cfg.spp, cfg.spp)
+    st, iterate, _ = regen.regen_loop(sc, cfg, key, n_pix, total, lanes=lanes, seed_mode=seeds)
+    return _step_launches(functools.partial(iterate, st), dev)
+
+
+def _chunk_launches(sc, cfg):
+    """:func:`_step_launches` of one prepass chunk of the cached route
+    (chunk 0 the warm-up, chunk 1 eager, chunk 2 the replay)."""
+    n_pix = sc.camera.width * sc.camera.height
+    loop = regen.PrepassLoop(sc, cfg, rng.base_key(cfg.seed, device=sc.device), n_pix, cfg.spp,
+                             cfg.spp)
+    return _step_launches(loop.chunk, sc.device)
+
+
+def _launch_line(what, it):
+    return (f"{what} traced: eager {it['eager'][0]} device events from {it['eager'][1]} host "
+            f"launch calls in {it['eager'][2]:.2f} ms, replay {it['replay'][0]} device events "
+            f"from {it['replay'][1]} host launch calls in {it['replay'][2]:.2f} ms; kernels of "
+            f"the port in one {what.split()[-1]} {it['wrappers']}")
+
+
 def phase_graph(scene):
-    """Phase "graph": render_regen's loop captured as a CUDA graph against
-    the same loop run eagerly (graph=False): the e2e cached and e2e cells in
-    turns, kernel launches an iteration from a trace of one eager iteration
-    against one replay, a deterministic pair, the blocker queue and the
-    auto-cull loop."""
+    """Phase "graph": render_regen's loop and the prepass's chunks captured
+    as CUDA graphs against the same render run eagerly (graph=False): the
+    e2e cached and e2e cells in turns, with the cached cell's prepass and
+    loop seconds apart, kernel launches an iteration and a prepass chunk
+    from a trace of one eager step against one replay, a deterministic
+    pair, the blocker queue and the auto-cull loop."""
     t0 = time.perf_counter()
     sc = with_res(scene, RES, RES)
     out = {}
@@ -1354,15 +1425,19 @@ def phase_graph(scene):
         _graph_pair(f"{tag} {RES}^2 x {SPP} spp, {lanes} lanes", g, e)
         it = _iteration_launches(sc, cfg, lanes, cached)
         log(f"[graph] {tag}: seconds in turns, captured {[r['seconds'] for r in runs[None]]}, "
-            f"eager {[r['seconds'] for r in runs[False]]}; one iteration traced: eager "
-            f"{it['eager'][0]} device events from {it['eager'][1]} host launch calls in "
-            f"{it['eager'][2]:.2f} ms, replay {it['replay'][0]} device events from "
-            f"{it['replay'][1]} host launch calls in {it['replay'][2]:.2f} ms; kernels of "
-            f"the port in one iteration {it['wrappers']}")
+            f"eager {[r['seconds'] for r in runs[False]]}; " + _launch_line("one iteration", it))
         out[tag] = dict(captured_s=[r["seconds"] for r in runs[None]],
                         eager_s=[r["seconds"] for r in runs[False]], capture_s=g["capture_s"],
                         iters=g["iters"], peak_mib=(g["peak_mib"], e["peak_mib"]),
                         iteration=it)
+        if cached:
+            ch = _chunk_launches(sc, cfg)
+            split = {m: [(r["prepass_s"], r["loop_s"]) for r in runs[m]] for m in runs}
+            log(f"[graph] {tag}: (prepass, loop) seconds in turns, captured {split[None]}, eager "
+                f"{split[False]}; " + _launch_line("one prepass chunk", ch))
+            assert all(r["tails"] == 0 for m in runs for r in runs[m]), \
+                "the prepass took its overflow tail on Veach"
+            out[tag].update(split=split, chunk=ch)
 
     small = main_cfg().replace(width=COMPAT_SMALL, height=COMPAT_SMALL, spp=2)
     ssc = with_res(scene, COMPAT_SMALL, COMPAT_SMALL)
@@ -2027,15 +2102,16 @@ def eager_loop():
 def record_light_traces(fn, n_lights: int):
     """Run ``fn()`` counting K1 launches on the lights-only accel (the
     ref_mis_weights trace), apart in the prepass and in the loop: (its
-    result, {"prepass": n, "loop": n}). The loop runs eagerly
-    (:func:`eager_loop`), so that each iteration's trace is counted."""
+    result, {"prepass": n, "loop": n}). The prepass and the loop run
+    eagerly (:func:`eager_loop`), so that each chunk's and iteration's
+    trace is counted."""
     rec = {"prepass": 0, "loop": 0, "in_prepass": False}
     orig = (regen.primary_prepass, ops_intersect.intersect)
 
     def prepass(*a, **kw):
         rec["in_prepass"] = True
         try:
-            return orig[0](*a, **kw)
+            return orig[0](*a, **{**kw, "graph": False})
         finally:
             rec["in_prepass"] = False
 
@@ -2107,7 +2183,8 @@ def _compat_ref_mis(scene, e2e):
     checksum = float((img.astype(np.float64) * SPP).sum())
     log(f"[compat] (a) ref_mis_weights, veach {RES}^2 x {SPP} spp cached, {LANES_CACHED} lanes: "
         f"{res.seconds:.2f} s, {res.rays_traced} rays, "
-        f"{res.rays_traced / res.seconds / 1e6:.3f} Mrays/s, eager loop (phase 6, captured: "
+        f"{res.rays_traced / res.seconds / 1e6:.3f} Mrays/s, eager prepass and loop (phase 6, "
+        f"captured: "
         f"{e2e['seconds']:.2f} s, "
         f"{e2e['rays']} rays); fb_checksum {checksum:.1f} (phase 6 {e2e['checksum']:.1f}, gap "
         f"{checksum / e2e['checksum'] - 1.0:+.3e}); launches {launches}; K1 on the light accel: "
@@ -2395,7 +2472,7 @@ def main():
     profile = walled("profile", phase_profile, scene)
     graph = walled("graph", phase_graph, scene)
     walled("two devices", phase_two_devices, scene_cpu)
-    fixed = walled("e2e fixed-depth", phase_fixed_depth, scene, kernels)
+    fixed, _ = walled("e2e fixed-depth", phase_fixed_depth, scene, kernels)
     walled("gradient", phase_gradient, scene_cpu)
     auto = walled("auto cull", phase_auto_cull)
     walled("cli", phase_cli)

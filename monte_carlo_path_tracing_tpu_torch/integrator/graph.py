@@ -1,12 +1,14 @@
-"""The regeneration loop's iteration, captured once as a CUDA graph and
-replayed.
+"""A loop's step, captured once as a CUDA graph and replayed.
 
-Counterpart of what ``jax.jit`` gives the JAX loop: the JAX renderer jits
+Counterpart of what ``jax.jit`` gives the JAX loops: the JAX renderer jits
 ``render_regen`` (``monte_carlo_path_tracing_tpu/render/renderer.py``), whose
-loop is a ``lax.while_loop`` (``integrator/regen.py``), so an iteration is
-one compiled program that never returns to the host. Here, on CUDA tensors,
-:class:`GraphedLoop` runs the loop's iteration function (which reads and
-writes one dict of tensors in place, ``regen.regen_loop``) as follows:
+loop is a ``lax.while_loop`` and whose prepass a ``lax.fori_loop`` over
+pixel chunks (``integrator/regen.py``), and its fixed-depth path runs a
+``fori_loop`` over bounces (``integrator/wavefront.py``), so a step is one
+compiled program that never returns to the host. Here, on CUDA tensors,
+:class:`GraphedLoop` runs such a step (a function that reads and writes
+buffers in place: ``regen.regen_loop``'s iteration, ``regen.PrepassLoop``'s
+chunk, ``wavefront.bounce_loop``'s bounce) as follows:
 
 1. the first iteration eagerly, on a side stream: the warm-up, which loads
    the kernel library (nvcc must never run inside a capture) and lets the
@@ -16,9 +18,11 @@ writes one dict of tensors in place, ``regen.regen_loop``) as follows:
 3. every later iteration is one ``replay()``.
 
 The loop's condition stays on the host: one read a replay, the ``cond`` of
-JAX's while_loop. One graph serves one ``render_regen`` call; its private
-memory pool holds one iteration's temporaries and goes with it. A capture
-that fails raises; nothing falls back to the eager loop.
+JAX's while_loop (the prepass: its ``lax.cond`` on the overflow tail). One
+graph serves one ``render_regen`` or ``primary_prepass`` call, or one
+``render_image``; its private memory pool holds one step's temporaries
+and goes with it. A capture that fails raises; nothing falls back to the
+eager loop.
 """
 
 from __future__ import annotations

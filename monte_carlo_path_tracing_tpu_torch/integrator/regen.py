@@ -25,7 +25,10 @@ and launch splitting, and consumes the same streams as the JAX package.
 - :func:`primary_prepass`: with jitter off every spp of a pixel re-traces
   one camera ray, so the pre-pass traces each pixel once (K4, culled),
   prepares its Arvo CDF once, and runs the depth-0 shading densely for all
-  spp rounds (shadow rays through K5), leaving continuation seeds.
+  spp rounds (shadow rays through K5), leaving continuation seeds. As in
+  JAX, each pixel chunk shades a fixed prefix of its partitioned
+  survivors and runs the overflow tail only when they exceed it, so a
+  chunk (:class:`PrepassLoop`) is one CUDA graph replay on the card.
 - :func:`render_regen_cached`: the pre-pass, then the seeded loop — the
   default route whenever :func:`primary_cache_eligible` holds.
 
@@ -214,6 +217,219 @@ def sort_lanes(st: dict, scene_lo, scene_inv) -> dict:
     return {k: v[order] if k in LANE_ARRAYS else v for k, v in st.items()}
 
 
+def _prefix_rows(S: int, cfg: RenderConfig) -> int:
+    """The fixed survivor prefix P of a prepass chunk's S samples (JAX
+    regen.py:390-391): every sample for split (no RR gate before its direct
+    term), else rr_prob + 2.5% of S rounded up to 256 rows, which the
+    Binomial(S, rr_prob) survivors essentially never exceed; the overflow
+    tail keeps the prepass exact when they do."""
+    if cfg.estimator == EST_SPLIT:
+        return S
+    return min(S, -(-int(S * min(1.0, cfg.rr_prob + 0.025)) // 256) * 256)
+
+
+class PrepassLoop:
+    """The chunk loop of :func:`primary_prepass` (same arguments), JAX's
+    ``fori_loop`` over pixel chunks (regen.py:624-630 of the JAX package):
+
+    - ``state``: the outputs being filled (``fb_pre``, ``cache_*``,
+      ``seeds_*``, ``count``, ``n_shadow``), the chunk index ``c`` and the
+      chunk's survivor count ``n_live``, each its own device buffer;
+    - :meth:`chunk`: chunk ``c`` of JAX's body: trace, prepare and draw,
+      stably partition the survivors to the front, shade the fixed prefix
+      ``order[:P]`` (its dead rows masked), write the chunk's rows and
+      advance ``c``. No host read: it writes ``state`` in place and leaves
+      its intermediates (``last``, which :meth:`tail` reads) where a CUDA
+      graph replay rewrites them, so that it can be captured and replayed;
+    - :meth:`over`: JAX's ``lax.cond`` predicate ``n_live > P``, one host
+      read of the chunk just run;
+    - :meth:`tail`: shade that chunk's overflow ``order[P:]`` and rewrite
+      its radiance rows, eagerly: the sums and seeds of an unsplit pass;
+    - :meth:`result`: :func:`primary_prepass`'s return value, with one
+      host read of (count, n_shadow)."""
+
+    def __init__(self, scene: Scene, cfg: RenderConfig, base_key: torch.Tensor, n_pix: int,
+                 spp_cap: int, spp_rounds: int, pixel_offset: int = 0, pixel_stride: int = 1,
+                 spp0: int = 0, pix_chunk: int = 1 << 15):
+        _check_supported(cfg)
+        self.scene, self.cfg = scene, cfg
+        self.spp_rounds = min(int(spp_rounds), int(spp_cap))
+        self.n_pix, self.pixel_stride, self.pixel_offset = n_pix, pixel_stride, pixel_offset
+        dev = scene.device
+        self.accel = ops_intersect.build_accel(scene)
+        self.tri_to_light = common.light_index_table(scene)
+        self.consts = arvo_cuda.pack_consts(scene)
+        self.table = light_spherical.light_table(scene)
+        self.spherical = cfg.light_sampler == LS_SPHERICAL
+        self.is_mis = cfg.estimator == EST_MIS
+        self.is_split = cfg.estimator == EST_SPLIT
+        self.light_accel = (ops_intersect.build_light_accel(scene)
+                            if self.is_mis and cfg.ref_mis_weights else None)
+        self.picks = (self.is_mis or self.is_split) and self.spherical
+        u_ax, v_ax, n_ax, dist = camera_basis(scene.camera)
+        self.camera = (scene.camera, u_ax, v_ax, n_ax, dist, pixel_len(scene.camera, dist))
+
+        # The flattened batch of a chunk is chunk * spp_cap samples: ~256k
+        # rows whatever the spp (the JAX formula, so seed order and sums
+        # follow it). Every chunk has this shape: the last one's rows past
+        # n_pix are masked.
+        R = spp_cap
+        self.pix_chunk = min(pix_chunk, n_pix, max(4096, (1 << 18) // max(spp_cap, 1)))
+        self.n_chunks = -(-n_pix // self.pix_chunk)
+        self.S = R * self.pix_chunk
+        self.P = _prefix_rows(self.S, cfg)
+        self.total = n_pix * spp_cap
+        self.w_rr = 1.0 / cfg.rr_prob
+        f32 = dict(device=dev, dtype=torch.float32)
+        i64 = dict(device=dev, dtype=torch.int64)
+        npad = self.n_chunks * self.pix_chunk
+        total = self.total
+        self.state = {
+            "fb_pre": torch.zeros((npad, 3), **f32),
+            "cache_p": torch.zeros((npad, 3), **f32),
+            "cache_ns": torch.zeros((npad, 3), **f32),
+            "cache_wsum": torch.zeros(npad, **f32),
+            "cache_tri": torch.full((npad,), ops_intersect.NO_HIT, dtype=torch.int32,
+                                    device=dev),
+            # Seed records; row ``total`` is the sink of masked writes.
+            "seeds_sample": torch.zeros(total + 1, **i64),
+            "seeds_wi": torch.zeros((total + 1, 3), **f32),
+            "seeds_tp": torch.zeros((total + 1, 3), **f32),
+            "seeds_pdf": torch.zeros(total + 1, **f32),
+            "count": torch.zeros((), **i64),
+            "n_shadow": torch.zeros((), **i64),
+            "c": torch.zeros((), **i64),
+            "n_live": torch.zeros((), **i64),
+        }
+        self.r_ids = torch.arange(R, device=dev)[:, None]
+        self.r_live = self.r_ids < self.spp_rounds
+        self.lane = torch.arange(self.pix_chunk, device=dev)
+        self.k_r = rng.fold_in(base_key.to(dev), spp0 + torch.arange(R, device=dev))  # [R, 2]
+        self.last: dict = {}
+
+    def chunk(self) -> None:
+        scene, cfg, st, chunk, S = self.scene, self.cfg, self.state, self.pix_chunk, self.S
+        pix_local = st["c"] * chunk + self.lane
+        gpix = pix_local * self.pixel_stride + self.pixel_offset
+        ro, rd = primary_dirs(*self.camera, gpix)
+        hit = ops_intersect.intersect(self.accel, ro, rd, cull=True)
+        si = common.gather_interaction(scene, hit, rd, self.tri_to_light)
+        hitok = (pix_local < self.n_pix) & hit.valid & si.front
+        # Depth-0 emission: tp = 1 and weight 1 for every estimator, the
+        # same for every sample of the pixel.
+        em_add = torch.where((hitok & si.is_light)[:, None],
+                             si.emission * float(self.spp_rounds), torch.zeros_like(si.emission))
+        shade0 = hitok & ~si.is_light
+        ck = {"pix_local": pix_local, "si": si, "em_add": em_add, "lidx": None}
+        if self.picks:
+            weights, ck["wsum"] = light_spherical.prepare(scene, si.p, si.ns, consts=self.consts)
+            cdf = torch.cumsum(weights, dim=-1)
+        else:
+            ck["wsum"] = torch.zeros(chunk, device=scene.device)
+
+        # All rounds of the chunk as one [S] batch, row-major (round, pixel).
+        lk0 = rng.fold_in(rng.fold_in(self.k_r[:, None, :], gpix[None, :]).reshape(S, 2), 0)
+        survive, _ = common.russian_roulette(rng.fold_in(lk0, rng.P_RR), S, cfg.rr_prob)
+        if self.picks:
+            # rng.pick_weighted against the cached CDF, densely: the CDF is
+            # non-decreasing, so searchsorted(right) = count(cdf <= u wsum).
+            u_d = rng.uniform(rng.fold_in(rng.fold_in(lk0, rng.P_LIGHT_SELECT), 0), (S,))
+            thresh = (u_d.view(-1, chunk) * ck["wsum"][None, :]).t().contiguous()
+            ck["lidx"] = torch.clamp(torch.searchsorted(cdf, thresh, right=True),
+                                     max=weights.shape[-1] - 1).t().reshape(S).to(torch.int32)
+        hit_live = (shade0[None, :] & self.r_live).reshape(S)
+        # mis: RR gates both strategies; brdf: the continuation; split: only
+        # the continuation (its direct term runs for every hit sample).
+        part = hit_live if self.is_split else hit_live & survive
+        # Stable partition: survivors first in sample order, so seed order
+        # is the unpartitioned order's.
+        ck.update(lk0=lk0, survive=survive, part=part,
+                  order=torch.argsort((~part).to(torch.int32), stable=True),
+                  sample=(self.r_ids * self.n_pix + pix_local[None, :]).reshape(S),
+                  fb_acc=torch.zeros((chunk, 3), device=scene.device))
+        self.last = ck
+        st["n_live"].copy_(part.sum())
+        if self.spp_rounds:          # a 0-round pass (a warm-up) has no live row
+            self._stage(ck["order"][:self.P])
+        st["fb_pre"].index_copy_(0, pix_local, em_add + ck["fb_acc"])
+        st["cache_p"].index_copy_(0, pix_local, si.p)
+        st["cache_ns"].index_copy_(0, pix_local, si.ns)
+        st["cache_wsum"].index_copy_(0, pix_local, ck["wsum"])
+        st["cache_tri"].index_copy_(0, pix_local, hit.tri_id)
+        st["c"].add_(1)
+
+    def over(self) -> bool:
+        return self.P < self.S and bool(self.state["n_live"] > self.P)
+
+    def tail(self) -> None:
+        ck = self.last
+        self._stage(ck["order"][self.P:])
+        self.state["fb_pre"].index_copy_(0, ck["pix_local"], ck["em_add"] + ck["fb_acc"])
+
+    def _stage(self, rows: torch.Tensor) -> None:
+        """Depth-0 shading of the samples at flat rows ``rows`` of the last
+        chunk: NEE or direct light with culled shadow rays (K5 on CUDA)
+        added into its ``fb_acc``, then the BRDF sample that becomes a seed
+        (with ``ref_mis_weights``, its weight's denominator adds the light
+        pdf along it: K1 on the lights-only accel). Rows outside the
+        partition add nothing, count no ray and write their seed to the
+        sink row."""
+        scene, cfg, st, ck = self.scene, self.cfg, self.state, self.last
+        live = ck["part"][rows]
+        pix = rows % self.pix_chunk
+        si = ck["si"]
+        si_c = common.SurfaceInteraction(
+            **{f.name: getattr(si, f.name)[pix] for f in dataclasses.fields(si)})
+        wsum_c = ck["wsum"][pix]
+        lk0_c = ck["lk0"][rows]
+        if self.is_mis or self.is_split:
+            st["n_shadow"].add_(live.sum())
+            kstep = rng.fold_in(lk0_c, rng.P_LIGHT_SELECT)
+            if self.spherical:
+                ls = light_spherical.sample_from_pick(
+                    rng.fold_in(kstep, 1), scene, si_c.p, si_c.ns, ck["lidx"][rows], wsum_c,
+                    table=self.table)
+            else:
+                ls = light_uniform.sample(kstep, scene, rows.shape[0])
+            if self.is_split:
+                ck["fb_acc"].index_add_(0, pix, _direct_term(scene, cfg, self.accel, si_c, ls,
+                                                             live, cull=True))
+                live = live & ck["survive"][rows]
+            else:
+                nee = _nee_term(scene, cfg, self.accel, si_c, ls, wsum_c, live, cull=True)
+                ck["fb_acc"].index_add_(0, pix, self.w_rr * nee)
+
+        bs = phong.sample_brdf(rng.fold_in(lk0_c, rng.P_BSDF), si_c.ns, si_c.wo, si_c.kd,
+                               si_c.ks, si_c.ns_exp, branch_pdf_compat=cfg.branch_pdf_compat)
+        cos_i = vm.dot(bs.wi, si_c.ns)
+        cont = live & (cos_i > 0.0) & (bs.pdf > 1e-12)
+        pdf = bs.pdf
+        if self.light_accel is not None:
+            pdf = pdf + _light_pdf_along(scene, cfg, self.light_accel, self.tri_to_light, si_c,
+                                         bs.wi, wsum_c, table=self.table)
+        f = phong.eval_brdf(si_c.ns, bs.wi, si_c.wo, si_c.kd, si_c.ks, si_c.ns_exp)
+        tp_next = f * (torch.clamp(cos_i, min=0.0) / torch.clamp(pdf, min=1e-12)
+                       * self.w_rr)[:, None]
+        count = st["count"]
+        slot = torch.where(cont, count + torch.cumsum(cont.to(torch.int64), 0) - 1, self.total)
+        st["seeds_sample"][slot] = ck["sample"][rows]
+        st["seeds_wi"][slot] = bs.wi
+        st["seeds_tp"][slot] = tp_next
+        st["seeds_pdf"][slot] = bs.pdf
+        count.add_(cont.sum())
+
+    def result(self):
+        st, n_pix = self.state, self.n_pix
+        count, n_shadow = torch.stack([st["count"], st["n_shadow"]]).tolist()
+        seeds = SeedMode(
+            sample=st["seeds_sample"], wi=st["seeds_wi"], tp=st["seeds_tp"],
+            pdf=st["seeds_pdf"], cache_p=st["cache_p"][:n_pix], cache_ns=st["cache_ns"][:n_pix],
+            cache_wsum=st["cache_wsum"][:n_pix], cache_tri=st["cache_tri"][:n_pix],
+            fb_pre=st["fb_pre"][:n_pix],
+        )
+        return seeds, count, self.spp_rounds * n_pix + n_shadow, n_pix + n_shadow
+
+
 def primary_prepass(
     scene: Scene,
     cfg: RenderConfig,
@@ -225,10 +441,11 @@ def primary_prepass(
     pixel_stride: int = 1,
     spp0: int = 0,
     pix_chunk: int = 1 << 15,
+    graph: bool | None = None,
 ):
     """Per-pixel primary hit and dense depth-0 shading for ``spp_rounds``
     rounds (clamped to ``spp_cap``, which sizes the seed buffer), pixel
-    chunk by pixel chunk:
+    chunk by pixel chunk (:class:`PrepassLoop`):
 
     1. trace each pixel's camera ray once, culled (K4 on CUDA);
     2. Arvo ``prepare`` and its CDF once per pixel (mis/split, spherical);
@@ -236,150 +453,31 @@ def primary_prepass(
        fold(fold(fold(base, spp0 + round), pixel), 0) streams and purposes
        as the uncached loop's depth 0;
     4. stably partition the survivors to the front (seed order is sample
-       order), and shade only them: NEE or direct light with culled shadow
-       rays (K5 on CUDA), then the BRDF sample that becomes a seed (with
-       ``ref_mis_weights``, its weight's denominator adds the light pdf
-       along it: K1 on the lights-only accel).
+       order), and shade JAX's fixed prefix of P rows, dead rows masked:
+       NEE or direct light with culled shadow rays (K5 on CUDA), then the
+       BRDF sample that becomes a seed; survivors past P (the overflow
+       tail, which JAX runs under ``lax.cond``) are shaded after the
+       chunk when the host read of ``n_live > P`` says so.
+
+    ``graph`` as in :func:`render_regen`: on CUDA tensors (``None``) chunk
+    0 runs eagerly, chunk 1 is captured as a CUDA graph, and every later
+    chunk is one replay and the one predicate read; ``False`` runs every
+    chunk eagerly; ``True`` on CPU tensors raises.
 
     Returns (seed_mode, seed_count, nrays_logical, nrays_physical):
     logical rays count the primary once per sample (comparable with the
-    uncached loop), physical ones once per pixel. One host sync per chunk
-    (the survivor count) replaces the JAX survivor prefix and its
-    ``lax.cond`` tail; the values are the same."""
-    _check_supported(cfg)
-    spp_rounds = min(int(spp_rounds), int(spp_cap))
-    dev = scene.device
-    base_key = base_key.to(dev)
-    accel = ops_intersect.build_accel(scene)
-    tri_to_light = common.light_index_table(scene)
-    consts = arvo_cuda.pack_consts(scene)
-    table = light_spherical.light_table(scene)
-    spherical = cfg.light_sampler == LS_SPHERICAL
-    is_mis = cfg.estimator == EST_MIS
-    light_accel = (ops_intersect.build_light_accel(scene) if is_mis and cfg.ref_mis_weights
-                   else None)
-    is_split = cfg.estimator == EST_SPLIT
-    picks = (is_mis or is_split) and spherical
-    cam = scene.camera
-    u_ax, v_ax, n_ax, dist = camera_basis(cam)
-    plen = pixel_len(cam, dist)
-
-    # The flattened batch of a chunk is chunk * spp_cap samples: ~256k rows
-    # whatever the spp (the JAX formula, so seed order and sums follow it).
-    chunk = min(pix_chunk, n_pix, max(4096, (1 << 18) // max(spp_cap, 1)))
-    n_chunks = -(-n_pix // chunk)
-    total = n_pix * spp_cap
-    w_rr = 1.0 / cfg.rr_prob
-    R = spp_cap
-    S = R * chunk
-    f32 = dict(device=dev, dtype=torch.float32)
-
-    npad = n_chunks * chunk
-    fb_pre = torch.zeros((npad, 3), **f32)
-    cache_p = torch.zeros((npad, 3), **f32)
-    cache_ns = torch.zeros((npad, 3), **f32)
-    cache_wsum = torch.zeros(npad, **f32)
-    cache_tri = torch.full((npad,), ops_intersect.NO_HIT, dtype=torch.int32, device=dev)
-    # Seed records; row ``total`` is the sink of masked writes.
-    seeds_sample = torch.zeros(total + 1, dtype=torch.int64, device=dev)
-    seeds_wi = torch.zeros((total + 1, 3), **f32)
-    seeds_tp = torch.zeros((total + 1, 3), **f32)
-    seeds_pdf = torch.zeros(total + 1, **f32)
-    count = torch.zeros((), dtype=torch.int64, device=dev)
-    n_shadow = 0
-
-    r_ids = torch.arange(R, device=dev)[:, None]
-    k_r = rng.fold_in(base_key, spp0 + torch.arange(R, device=dev))     # [R, 2]
-    for c in range(n_chunks):
-        pix_local = c * chunk + torch.arange(chunk, device=dev)
-        gpix = pix_local * pixel_stride + pixel_offset
-        ro, rd = primary_dirs(cam, u_ax, v_ax, n_ax, dist, plen, gpix)
-        hit = ops_intersect.intersect(accel, ro, rd, cull=True)
-        si = common.gather_interaction(scene, hit, rd, tri_to_light)
-        hitok = (pix_local < n_pix) & hit.valid & si.front
-        # Depth-0 emission: tp = 1 and weight 1 for every estimator, the
-        # same for every sample of the pixel.
-        em_add = torch.where((hitok & si.is_light)[:, None], si.emission * float(spp_rounds),
-                             torch.zeros_like(si.emission))
-        shade0 = hitok & ~si.is_light
-        if picks:
-            weights, wsum = light_spherical.prepare(scene, si.p, si.ns, consts=consts)
-            cdf = torch.cumsum(weights, dim=-1)
-        else:
-            wsum = torch.zeros(chunk, **f32)
-
-        # All rounds of the chunk as one [S] batch, row-major (round, pixel).
-        lk0 = rng.fold_in(rng.fold_in(k_r[:, None, :], gpix[None, :]).reshape(S, 2), 0)
-        survive, _ = common.russian_roulette(rng.fold_in(lk0, rng.P_RR), S, cfg.rr_prob)
-        if picks:
-            # rng.pick_weighted against the cached CDF, densely: the CDF is
-            # non-decreasing, so searchsorted(right) = count(cdf <= u wsum).
-            u_d = rng.uniform(rng.fold_in(rng.fold_in(lk0, rng.P_LIGHT_SELECT), 0), (S,))
-            thresh = (u_d.view(R, chunk) * wsum[None, :]).t().contiguous()
-            lidx_d = torch.clamp(torch.searchsorted(cdf, thresh, right=True),
-                                 max=weights.shape[-1] - 1).t().reshape(S).to(torch.int32)
-        hit_live = (shade0[None, :] & (r_ids < spp_rounds)).reshape(S)
-        # mis: RR gates both strategies; brdf: the continuation; split: only
-        # the continuation (its direct term runs for every hit sample).
-        part = hit_live if is_split else hit_live & survive
-        n_live = int(part.sum())
-        if n_live:
-            rows = torch.argsort((~part).to(torch.int32), stable=True)[:n_live]
-            pix = rows % chunk
-            si_c = common.SurfaceInteraction(
-                **{f.name: getattr(si, f.name)[pix] for f in dataclasses.fields(si)})
-            wsum_c = wsum[pix]
-            lk0_c = lk0[rows]
-            live = torch.ones(n_live, dtype=torch.bool, device=dev)
-            fb_acc = torch.zeros((chunk, 3), **f32)
-            if is_mis or is_split:
-                n_shadow += n_live
-                kstep = rng.fold_in(lk0_c, rng.P_LIGHT_SELECT)
-                if spherical:
-                    ls = light_spherical.sample_from_pick(
-                        rng.fold_in(kstep, 1), scene, si_c.p, si_c.ns, lidx_d[rows], wsum_c,
-                        table=table)
-                else:
-                    ls = light_uniform.sample(kstep, scene, n_live)
-                if is_split:
-                    fb_acc.index_add_(0, pix, _direct_term(scene, cfg, accel, si_c, ls, live,
-                                                           cull=True))
-                    live = survive[rows]
-                else:
-                    nee = _nee_term(scene, cfg, accel, si_c, ls, wsum_c, live, cull=True)
-                    fb_acc.index_add_(0, pix, w_rr * nee)
-
-            bs = phong.sample_brdf(rng.fold_in(lk0_c, rng.P_BSDF), si_c.ns, si_c.wo, si_c.kd,
-                                   si_c.ks, si_c.ns_exp, branch_pdf_compat=cfg.branch_pdf_compat)
-            cos_i = vm.dot(bs.wi, si_c.ns)
-            cont = live & (cos_i > 0.0) & (bs.pdf > 1e-12)
-            pdf = bs.pdf
-            if light_accel is not None:
-                pdf = pdf + _light_pdf_along(scene, cfg, light_accel, tri_to_light, si_c, bs.wi,
-                                             wsum_c, table=table)
-            f = phong.eval_brdf(si_c.ns, bs.wi, si_c.wo, si_c.kd, si_c.ks, si_c.ns_exp)
-            tp_next = f * (torch.clamp(cos_i, min=0.0) / torch.clamp(pdf, min=1e-12)
-                           * w_rr)[:, None]
-            slot = torch.where(cont, count + torch.cumsum(cont.to(torch.int64), 0) - 1, total)
-            seeds_sample[slot] = (r_ids * n_pix + pix_local[None, :]).reshape(S)[rows]
-            seeds_wi[slot] = bs.wi
-            seeds_tp[slot] = tp_next
-            seeds_pdf[slot] = bs.pdf
-            count = count + cont.sum()
-            em_add = em_add + fb_acc
-        sl = slice(c * chunk, (c + 1) * chunk)
-        fb_pre[sl] = em_add
-        cache_p[sl] = si.p
-        cache_ns[sl] = si.ns
-        cache_wsum[sl] = wsum
-        cache_tri[sl] = hit.tri_id
-
-    seeds = SeedMode(
-        sample=seeds_sample, wi=seeds_wi, tp=seeds_tp, pdf=seeds_pdf,
-        cache_p=cache_p[:n_pix], cache_ns=cache_ns[:n_pix], cache_wsum=cache_wsum[:n_pix],
-        cache_tri=cache_tri[:n_pix], fb_pre=fb_pre[:n_pix],
-    )
-    return seeds, int(count), spp_rounds * n_pix + n_shadow, n_pix + n_shadow
+    uncached loop), physical ones once per pixel."""
+    loop = PrepassLoop(scene, cfg, base_key, n_pix, spp_cap, spp_rounds,
+                       pixel_offset=pixel_offset, pixel_stride=pixel_stride, spp0=spp0,
+                       pix_chunk=pix_chunk)
+    step = loop.chunk
+    if graph_mod.use_graph(graph, scene.device):
+        step = graph_mod.GraphedLoop(step, scene.device)
+    for _ in range(loop.n_chunks):
+        step()
+        if loop.over():
+            loop.tail()
+    return loop.result()
 
 
 def render_regen_cached(
@@ -396,13 +494,14 @@ def render_regen_cached(
     graph: bool | None = None,
 ):
     """Primary-cache render: :func:`primary_prepass`, then the loop over
-    its seeds (depth >= 1 only; ``graph`` as in :func:`render_regen`). The
+    its seeds (depth >= 1 only; ``graph`` as in :func:`render_regen`, for
+    the prepass's chunks and the loop's iterations). The
     same estimate and streams as :func:`render_regen` over ``n_pix *
     spp_rounds`` samples; returns the same (fb, nrays, iters, stats) with
     logical rays, the physical count in ``stats.rays_physical``."""
     seeds, seed_count, n_log, n_phys = primary_prepass(
         scene, cfg, base_key, n_pix, spp_cap, spp_rounds,
-        pixel_offset=pixel_offset, pixel_stride=pixel_stride, spp0=spp0,
+        pixel_offset=pixel_offset, pixel_stride=pixel_stride, spp0=spp0, graph=graph,
     )
     fb, nrays_loop, iters, stats = render_regen(
         scene, cfg, base_key, n_pix, seed_count, lanes=lanes, pixel_offset=pixel_offset,
@@ -542,8 +641,8 @@ def regen_loop(
         counter, fb = st["counter"], st["fb"]
         lk_d = rng.fold_in(lane_stream(st["sample"], st["pixel"]), depth)
 
-        # ---- one bounce for live lanes (wavefront._run_mis / _run_split /
-        #      _run_brdf semantics) ----
+        # ---- one bounce for live lanes (wavefront._bounce_mis /
+        #      _bounce_split / _bounce_brdf semantics) ----
         hit = ops_intersect.intersect(accel, st["ro"], st["rd"], st["excl"], cull=loop_cull)
         nrays = alive.sum()
         si = common.gather_interaction(scene, hit, st["rd"], tri_to_light)

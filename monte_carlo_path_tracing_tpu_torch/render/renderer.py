@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from monte_carlo_path_tracing_tpu_torch.core import rng
-from monte_carlo_path_tracing_tpu_torch.integrator import render_rays
+from monte_carlo_path_tracing_tpu_torch.integrator.wavefront import RayRenderer
 from monte_carlo_path_tracing_tpu_torch.ops import grid as grid_mod
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.render.camera import generate_rays
@@ -37,15 +37,17 @@ class RenderResult:
     rays_traced: int
 
 
-def _sample_pass(scene: Scene, cfg: RenderConfig, key, pixel_idx, sample_id, accel=None):
-    """Radiance of one sample for each pixel of the chunk. Each lane's key
-    is fold(fold(base, sample_id), pixel_id), so the draws a pixel consumes
+def _sample_pass(scene: Scene, cfg: RenderConfig, key, pixel_idx, sample_id,
+                 renderer: RayRenderer):
+    """Radiance of one sample for each pixel of the chunk, through
+    ``renderer`` (``render_rays`` of the render). Each lane's key is
+    fold(fold(base, sample_id), pixel_id), so the draws a pixel consumes
     depend on (seed, pixel, sample) alone: the image does not depend on
     ``ray_chunk``, and the streams are the regeneration renderer's."""
     lane = rng.lane_keys(rng.sample_key(key, sample_id), pixel_idx)
     jitter = rng.bounce_key(lane, 0, rng.P_PIXEL_JITTER) if cfg.pixel_jitter else None
     ro, rd = generate_rays(scene.camera, pixel_idx, jitter_key=jitter)
-    return render_rays(scene, cfg, lane, ro, rd, accel=accel)
+    return renderer(lane, ro, rd)
 
 
 def render_image_regen(
@@ -131,14 +133,22 @@ def render_image(
     start_spp: int = 0,
     framebuffer: Optional[np.ndarray] = None,
     progress: Optional[Callable[[int, int], None]] = None,
+    graph: Optional[bool] = None,
 ) -> RenderResult:
     """Fixed-depth render of ``cfg.spp`` samples per pixel through
     ``render_rays``, resuming from ``start_spp`` when a framebuffer of summed
     radiance [H, W, 3] is given; ``progress(s, spp)`` fires after each
     sample. The last chunk is padded with pixel 0, whose extra radiance is
-    dropped. The accel is built once per call: the uniform grid when
-    ``cfg.accel == "grid"`` (a host build), else the triangle accel.
-    Forward only (autograd off); ``diff.grad`` differentiates."""
+    dropped, so every chunk has ``ray_chunk`` rays. The accel is built once
+    per call: the uniform grid when ``cfg.accel == "grid"`` (a host build),
+    else the triangle accel. Forward only (autograd off); ``diff.grad``
+    differentiates.
+
+    ``graph`` (``wavefront.RayRenderer``'s): ``None`` captures the bounce as one CUDA
+    graph for the whole call on CUDA tensors and the triangle accel (the
+    first chunk's bounce 0 eager, its bounce 1 captured, every later bounce
+    of every chunk one replay) and runs it eagerly elsewhere; ``False`` runs
+    it eagerly; ``True`` raises on the CPU or the grid."""
     cfg.validate()
     cam = scene.camera
     h, w = cam.height, cam.width
@@ -152,12 +162,13 @@ def render_image(
     idx_all[n_pix:] = 0                  # padded lanes recompute pixel 0
     accel = (grid_mod.build_grid(scene, n0=cfg.grid_n0) if cfg.accel == "grid"
              else ops_intersect.build_accel(scene))
+    renderer = RayRenderer(scene, cfg, accel=accel, graph=graph)
 
     t0 = time.perf_counter()
     with torch.no_grad():
         for s in range(start_spp, cfg.spp):
             for c0 in range(0, n_pix + pad, chunk):
-                rad = _sample_pass(scene, cfg, key, idx_all[c0:c0 + chunk], s, accel=accel)
+                rad = _sample_pass(scene, cfg, key, idx_all[c0:c0 + chunk], s, renderer)
                 hi = min(c0 + chunk, n_pix)
                 fb[c0:hi] += rad[:hi - c0].cpu().numpy()
             if progress is not None:

@@ -27,7 +27,7 @@ from monte_carlo_path_tracing_tpu_torch.core import rng
 from monte_carlo_path_tracing_tpu_torch.diff import grad as dgrad
 from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
 from monte_carlo_path_tracing_tpu_torch.diff.inverse import recover_materials
-from monte_carlo_path_tracing_tpu_torch.integrator import regen
+from monte_carlo_path_tracing_tpu_torch.integrator import regen, wavefront
 from monte_carlo_path_tracing_tpu_torch.render.camera import generate_rays
 from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image, render_image_regen
 from monte_carlo_path_tracing_tpu_torch.scene import load_scene
@@ -765,7 +765,7 @@ def test_blocker_render_card_matches_cpu(dev):
     takes another turn on the card (fused dots, ulps) renumbers the later
     chains: chains agree within three Poisson sigmas and the means within
     1% (measured on an H100: 207 against 202 chains, means 6e-4 apart)."""
-    from monte_carlo_path_tracing_tpu_torch.integrator import regen
+    from monte_carlo_path_tracing_tpu_torch.integrator import regen, wavefront
 
     sc = _scene("cornell", 32)
     cfg = RenderConfig(width=32, height=32, spp=2, estimator="mis", seed=5, max_depth=32,
@@ -901,3 +901,152 @@ def test_captured_loop_matches_eager(dev, cached):
     np.testing.assert_allclose(g[0], e[0], rtol=2e-4, atol=1e-5)
     assert g[3] == e[3]
     assert g[3]["K6 threefry"] > 0 and g[3]["K1 nearest_hit"] == g[2]
+
+
+def _veach_prepass(dev, graph, deterministic=False, **kw):
+    """Veach 128^2 x 4 spp (``kw`` changes the configuration) through
+    primary_prepass in chunks of 2,048 pixels (8 chunks: chunk 0 eager,
+    chunk 1 captured, 6 replays), then the seeded loop: (prepass result,
+    framebuffer, rays, launches)."""
+    sc = _scene("veach-mis", 128).to(dev)
+    cfg = RenderConfig(width=128, height=128, spp=4, estimator="mis", max_depth=16, seed=3, **kw)
+    key = rng.base_key(3, device=dev)
+    before = launches.counts()
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        pre = regen.primary_prepass(sc, cfg, key, 128 * 128, 4, 4, pix_chunk=2048, graph=graph)
+        fb, rays, _, _ = regen.render_regen(sc, cfg, key, 128 * 128, pre[1], lanes=4096,
+                                            seed_mode=pre[0], graph=graph)
+        fb = fb.cpu().numpy()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    after = launches.counts()
+    return pre, fb, pre[2] + int(rays), {k: after[k] - before[k] for k in after}
+
+
+def test_captured_prepass_matches_eager(dev):
+    """The prepass's chunks captured as a CUDA graph (the default on the
+    card) against graph=False: seed counts, rays, seeds and the per-pixel
+    cache equal; fb_pre and the rendered framebuffer within rtol 2e-4 /
+    atol 1e-5 (index_add_'s atomics add in another order); K4 / K5 / K6
+    launch counts equal (replays count the captured launches)."""
+    (gp, gfb, grays, gl), (ep, efb, erays, el) = (_veach_prepass(dev, None),
+                                                  _veach_prepass(dev, False))
+    assert gp[1:] == ep[1:] and grays == erays
+    k = gp[1]
+    for f in ("sample", "wi", "tp", "pdf"):
+        assert torch.equal(getattr(gp[0], f)[:k], getattr(ep[0], f)[:k]), f
+    for f in ("cache_p", "cache_ns", "cache_wsum", "cache_tri"):
+        assert torch.equal(getattr(gp[0], f), getattr(ep[0], f)), f
+    np.testing.assert_allclose(gp[0].fb_pre.cpu().numpy(), ep[0].fb_pre.cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(gfb, efb, rtol=2e-4, atol=1e-5)
+    assert gl == el and gl["K4 nearest_hit_culled"] == gl["K5 occluded_culled"] == 8
+
+
+def test_captured_prepass_deterministic_pair_is_bit_equal(dev):
+    """In torch's deterministic mode the captured prepass and loop give the
+    eager render bit for bit."""
+    (gp, gfb, grays, _), (ep, efb, erays, _) = (_veach_prepass(dev, None, True),
+                                                _veach_prepass(dev, False, True))
+    assert grays == erays and np.array_equal(gfb, efb)
+    assert torch.equal(gp[0].fb_pre, ep[0].fb_pre)
+
+
+@pytest.mark.parametrize("estimator", ["mis", "split", "brdf"])
+def test_captured_render_image_matches_eager(dev, estimator):
+    """render_image's bounce captured as one CUDA graph over its chunks and
+    spp (the default on the card) against graph=False: rays and K1-K3
+    launches equal, K4 / K5 never, the image within rtol 2e-4 / atol
+    1e-5."""
+    sc = _scene("veach-mis", 64).to(dev)
+    cfg = RenderConfig(width=64, height=64, spp=2, estimator=estimator, seed=11, max_depth=32,
+                       ray_chunk=1024)
+    out = []
+    for graph in (None, False):
+        before = launches.counts()
+        r = render_image(sc, cfg, graph=graph)
+        after = launches.counts()
+        out.append((r, {k: after[k] - before[k] for k in after}))
+    (g, gl), (e, el) = out
+    assert g.rays_traced == e.rays_traced
+    np.testing.assert_allclose(g.image, e.image, rtol=2e-4, atol=1e-5)
+    assert gl == el and gl["K1 nearest_hit"] > 8
+    assert gl["K4 nearest_hit_culled"] == gl["K5 occluded_culled"] == 0
+
+
+def _assert_same_seeds(a, b):
+    """Two prepass results: counts and rays equal, the seeds up to the
+    count and the per-pixel cache bit-equal."""
+    assert a[1:] == b[1:]
+    k = a[1]
+    for f in ("sample", "wi", "tp", "pdf"):
+        assert torch.equal(getattr(a[0], f)[:k], getattr(b[0], f)[:k]), f
+    for f in ("cache_p", "cache_ns", "cache_wsum", "cache_tri"):
+        assert torch.equal(getattr(a[0], f), getattr(b[0], f)), f
+
+
+def test_captured_prepass_forced_tail_is_bit_equal(dev, monkeypatch):
+    """The overflow tail under a real CUDA graph: with the prefix P set to
+    256 rows (the test seam ``_prefix_rows``), every chunk's survivors
+    overflow it, and the tail, run eagerly, reads the graph's outputs and
+    adds into its radiance rows. In deterministic mode the captured
+    prepass and loop give the eager ones bit for bit, tail for tail; the
+    seeds are those of the unforced prepass bit for bit, fb_pre within
+    rtol 1e-6 of it."""
+    want = _veach_prepass(dev, False, True)
+    ran = []
+    tail = regen.PrepassLoop.tail
+    monkeypatch.setattr(regen.PrepassLoop, "tail", lambda self: ran.append(1) or tail(self))
+    monkeypatch.setattr(regen, "_prefix_rows", lambda S, cfg: 256)
+    (gp, gfb, grays, gl), (ep, efb, erays, el) = (_veach_prepass(dev, None, True),
+                                                  _veach_prepass(dev, False, True))
+    assert len(ran) == 2 * 8                     # every chunk of both runs
+    _assert_same_seeds(gp, ep)
+    assert torch.equal(gp[0].fb_pre, ep[0].fb_pre)
+    assert grays == erays and np.array_equal(gfb, efb) and gl == el
+    assert gl["K5 occluded_culled"] == 16        # a prefix and a tail a chunk
+    _assert_same_seeds(want[0], gp)
+    torch.testing.assert_close(gp[0].fb_pre, want[0][0].fb_pre, rtol=1e-6, atol=0.0)
+
+
+def test_captured_cached_ref_mis_weights_matches_eager(dev):
+    """ref_mis_weights through the cached route, the prepass and loop
+    captured (K1 on the lights-only accel inside the chunk graph) against
+    graph=False: seeds and cache bit-equal, rays and every kernel's
+    launches equal, fb_pre and the framebuffer within rtol 2e-4 / atol
+    1e-5."""
+    (gp, gfb, grays, gl), (ep, efb, erays, el) = (
+        _veach_prepass(dev, None, ref_mis_weights=True),
+        _veach_prepass(dev, False, ref_mis_weights=True))
+    _assert_same_seeds(gp, ep)
+    np.testing.assert_allclose(gp[0].fb_pre.cpu().numpy(), ep[0].fb_pre.cpu().numpy(),
+                               rtol=2e-4, atol=1e-5)
+    np.testing.assert_allclose(gfb, efb, rtol=2e-4, atol=1e-5)
+    assert grays == erays and gl == el
+    assert gl["K1 nearest_hit"] > 8 and gl["K4 nearest_hit_culled"] == 8
+
+
+def test_captured_ray_renderer_scalar_key_row_offset(dev):
+    """A RayRenderer captured on the card with a scalar key and a row
+    offset (the form render_rays_sharded's ranks use), over two batches,
+    against render_rays (eager) on the same rays: rays and K1-K3 launches
+    equal, radiance within rtol 2e-4 / atol 1e-5."""
+    sc = _scene("veach-mis", 64).to(dev)
+    cfg = RenderConfig(width=64, height=64, spp=1, estimator="mis", max_depth=32, seed=5)
+    key = rng.base_key(5, device=dev)
+    batches = [generate_rays(sc.camera, torch.arange(i, i + 1024, device=dev))
+               for i in (1024, 2048)]
+    out = []
+    for run in (wavefront.RayRenderer(sc, cfg, row_offset=1024, graph=True),
+                lambda *a, **kw: wavefront.render_rays(sc, cfg, *a, row_offset=1024, **kw)):
+        before = launches.counts()
+        res = [run(key, ro, rd, with_stats=True) for ro, rd in batches]
+        after = launches.counts()
+        out.append(([(L.cpu().numpy(), int(st["rays"])) for L, st in res],
+                    {k: after[k] - before[k] for k in after}))
+    (g, gl), (e, el) = out
+    for (gL, gr), (eL, er) in zip(g, e):
+        assert gr == er and np.isfinite(gL).all()
+        np.testing.assert_allclose(gL, eL, rtol=2e-4, atol=1e-5)
+    assert gl == el and gl["K1 nearest_hit"] > 2
