@@ -55,10 +55,11 @@ exits non-zero without printing a result:
    e2e cached cell in turns (captured, eager, eager, captured) and the e2e
    cell (captured, eager): iterations, rays and every kernel's launches
    equal, the framebuffers within rtol 2e-4 / atol 1e-5, seconds (the
-   cached cell's prepass and loop apart, by CUDA events), capture
-   seconds, peak memory, and the prepass's overflow tails (none on
-   Veach); the kernel launches of one eager loop iteration against one
-   replay, and of one eager prepass chunk against one replay
+   cached cell's prepass and loop apart), capture seconds and the
+   prepass's overflow tails (none on Veach), each from the launch path's
+   spans in a CPU trace of the render (``utils.profiling.device_trace``),
+   and peak memory; the kernel launches of one eager loop iteration
+   against one replay, and of one eager prepass chunk against one replay
    (torch.profiler); a 512^2 x 2 spp cached pair in deterministic mode,
    prepass and loop captured, bit-equal (where that mode is capturable;
    phase 14 (d) follows what this finds); the blocker queue on cornell
@@ -1254,6 +1255,7 @@ def phase_profile(scene):
 #: GRAPH_BLOCKER_RES^2 x 2 spp and the auto-cull loop on bathroom at its
 #: own size x GRAPH_AUTO_SPP spp, captured against eager.
 GRAPH_RTOL, GRAPH_ATOL, GRAPH_BLOCKER_RES, GRAPH_AUTO_SPP = CLI_RTOL, CLI_ATOL, 32, 1
+GRAPH_TRACE_DIR = os.path.join(ROOT, "build", "chip_smoke", "graph_trace")
 #: Host launch calls in a torch.profiler trace (kernels, copies, fills, graphs).
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernelEx",
                 "cudaMemcpyAsync", "cudaMemsetAsync", "cudaGraphLaunch", "cuGraphLaunch")
@@ -1261,62 +1263,46 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC", "cu
 
 def _regen_run(sc, cfg, lanes: int, cached: bool, graph):
     """render_regen_cached (``cached``) or render_regen over every pixel and
-    spp of ``cfg``, with ``graph``: the framebuffer on the host, logical
-    rays, iterations, host seconds (to the framebuffer on the host), the
-    prepass's and the loop's seconds apart (CUDA events on the stream: the
-    prepass from its start to its end, the loop from there to the
-    framebuffer's copy), the prepass's overflow tails, the captures'
-    seconds (prepass and loop), peak device memory above the start in
-    MiB, every kernel's launches and the stats."""
+    spp of ``cfg``, with ``graph``, under a CPU trace
+    (``utils.profiling.device_trace`` into GRAPH_TRACE_DIR, read and
+    removed): the framebuffer on the host, logical rays, iterations, host
+    seconds (to the framebuffer on the host; the trace's host cost
+    included), and from the launch path's spans the prepass's and the
+    loop's seconds apart (``regen.prepass`` and ``regen.loop``: each ends
+    at a host read of its result, so it holds its device work), the
+    prepass's overflow tails (``regen.prepass_tail``) and the captures'
+    seconds (``graph.capture``, prepass and loop); peak device memory
+    above the start in MiB, every kernel's launches and the stats."""
+    from monte_carlo_path_tracing_tpu_torch.utils.profiling import SPANS, device_trace
+
     dev = sc.device
     n_pix = sc.camera.width * sc.camera.height
     key = rng.base_key(cfg.seed, device=dev)
-    loops = []
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    rec = {"tails": 0, "prepass": False}
-
-    class Recorded(graph_mod.GraphedLoop):
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            loops.append(self)
-
-    orig = (graph_mod.GraphedLoop, regen.primary_prepass, regen.PrepassLoop.tail)
-
-    def prepass(*a, **kw):
-        ev[0].record()
-        out = orig[1](*a, **kw)
-        ev[1].record()
-        rec["prepass"] = True
-        return out
-
-    def tail(self):
-        rec["tails"] += 1
-        return orig[2](self)
-
-    graph_mod.GraphedLoop, regen.primary_prepass, regen.PrepassLoop.tail = Recorded, prepass, tail
     reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    try:
+    with device_trace(GRAPH_TRACE_DIR, device="cpu") as prof:
+        t0 = time.perf_counter()
         if cached:
             fb, nrays, iters, stats = regen.render_regen_cached(
                 sc, cfg, key, n_pix, cfg.spp, cfg.spp, lanes=lanes, graph=graph)
         else:
             fb, nrays, iters, stats = regen.render_regen(sc, cfg, key, n_pix, n_pix * cfg.spp,
                                                          lanes=lanes, graph=graph)
-        ev[2].record()
         fb = fb.cpu().numpy()
-    finally:
-        graph_mod.GraphedLoop, regen.primary_prepass, regen.PrepassLoop.tail = orig
-    seconds = time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+    os.remove(prof.trace_path)
+    spans = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.name() in SPANS:
+            spans.setdefault(ev.name(), []).append(ev.duration_ns() / 1e9)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
-    split = ((ev[0].elapsed_time(ev[1]) / 1e3, ev[1].elapsed_time(ev[2]) / 1e3)
-             if rec["prepass"] else (0.0, 0.0))
+    split = ((sum(spans["regen.prepass"]), sum(spans["regen.loop"]))
+             if "regen.prepass" in spans else (0.0, 0.0))
     return dict(fb=fb, rays=int(nrays), iters=iters, seconds=seconds, prepass_s=split[0],
-                loop_s=split[1], tails=rec["tails"],
-                capture_s=sum(lp.capture_seconds for lp in loops), peak_mib=peak,
+                loop_s=split[1], tails=len(spans.get("regen.prepass_tail", [])),
+                capture_s=sum(spans.get("graph.capture", [])), peak_mib=peak,
                 launches=counters(), stats=stats)
 
 
@@ -1334,7 +1320,7 @@ def _graph_pair(tag, g, e, bit_equal=False):
         f"{diff:.3g}, bit-equal {same}; launches equal {g['launches'] == e['launches']} "
         f"{g['launches']}")
     if g["prepass_s"]:
-        log(f"[graph] {tag}: prepass / loop seconds (CUDA events), captured {g['prepass_s']:.4f} "
+        log(f"[graph] {tag}: prepass / loop seconds (spans), captured {g['prepass_s']:.4f} "
             f"/ {g['loop_s']:.4f}, eager {e['prepass_s']:.4f} / {e['loop_s']:.4f}; prepass "
             f"overflow tails {g['tails']} / {e['tails']}")
     assert g["iters"] == e["iters"] and g["rays"] == e["rays"], f"{tag}: the graph changed the loop"

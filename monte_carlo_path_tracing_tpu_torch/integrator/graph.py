@@ -22,18 +22,20 @@ JAX's while_loop (the prepass: its ``lax.cond`` on the overflow tail). One
 graph serves one ``render_regen`` or ``primary_prepass`` call, or one
 ``render_image``; its private memory pool holds one step's temporaries
 and goes with it. A capture that fails raises; nothing falls back to the
-eager loop.
+eager loop. The first call and the capture each run inside a span
+(``graph.warm_up``, ``graph.capture``: ``utils.profiling.span``); a replay
+runs none.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Callable
 
 import torch
 
 from monte_carlo_path_tracing_tpu_torch.ops import launches
+from monte_carlo_path_tracing_tpu_torch.utils.profiling import span
 
 
 def use_graph(graph: bool | None, device: torch.device) -> bool:
@@ -52,22 +54,19 @@ class CapturedStep:
     kernels' launches of one captured step to their counters (the wrappers
     ran once, at capture, where nothing launched). ``graph`` and
     ``capture`` (a context manager factory taking the graph) default to
-    ``torch.cuda.CUDAGraph()`` and ``torch.cuda.graph``; ``seconds`` is the
-    wall of capture and instantiation."""
+    ``torch.cuda.CUDAGraph()`` and ``torch.cuda.graph``."""
 
     def __init__(self, step: Callable[[], None], graph=None,
                  capture: Callable[..., contextlib.AbstractContextManager] | None = None):
         self.graph = torch.cuda.CUDAGraph() if graph is None else graph
         capture = torch.cuda.graph if capture is None else capture
         before = launches.counts()
-        t0 = time.perf_counter()
         try:
             with capture(self.graph):
                 step()
         finally:
             after = launches.counts()
             launches.restore(before)
-        self.seconds = time.perf_counter() - t0
         self.delta = {k: after[k] - before[k] for k in before}
 
     def replay(self) -> None:
@@ -88,10 +87,6 @@ class GraphedLoop:
         self.calls = 0
         self.captured: CapturedStep | None = None
 
-    @property
-    def capture_seconds(self) -> float:
-        return 0.0 if self.captured is None else self.captured.seconds
-
     def warm_up(self) -> None:
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -103,8 +98,10 @@ class GraphedLoop:
     def __call__(self) -> None:
         self.calls += 1
         if self.calls == 1:
-            self.warm_up()
+            with span("graph.warm_up"):
+                self.warm_up()
             return
         if self.captured is None:
-            self.captured = self.capture(self.step)
+            with span("graph.capture"):
+                self.captured = self.capture(self.step)
         self.captured.replay()

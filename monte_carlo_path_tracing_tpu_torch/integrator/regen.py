@@ -42,6 +42,14 @@ occluder it meets becomes a queued continuation path (a blocker chain)
 that free lanes pull, last in first out, before new samples. With
 ``accel="grid"`` the loop runs all pairs, as the JAX loop does.
 Forward-only, like the JAX loop.
+
+Spans (``utils.profiling.span``, recorded only under a torch profiler):
+``regen.prepass`` and ``regen.loop`` cover a :func:`primary_prepass` and
+a :func:`render_regen` call, ``regen.context`` the per-call build of
+accel, light tables, constants and state buffers in each,
+``regen.prepass_tail`` an overflow tail, and ``regen.sync`` each host
+read of a device value: the loop's condition, a chunk's overflow
+predicate and the counts.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from monte_carlo_path_tracing_tpu_torch.scene.types import Scene
 from monte_carlo_path_tracing_tpu_torch.utils.config import (
     EST_BRDF, EST_MIS, EST_SPLIT, LS_SPHERICAL, RenderConfig,
 )
+from monte_carlo_path_tracing_tpu_torch.utils.profiling import span
 
 
 #: Fold level reserved for blocker-chain streams: real streams fold (spp
@@ -359,7 +368,10 @@ class PrepassLoop:
         st["c"].add_(1)
 
     def over(self) -> bool:
-        return self.P < self.S and bool(self.state["n_live"] > self.P)
+        if self.P >= self.S:
+            return False
+        with span("regen.sync"):
+            return bool(self.state["n_live"] > self.P)
 
     def tail(self) -> None:
         ck = self.last
@@ -420,7 +432,8 @@ class PrepassLoop:
 
     def result(self):
         st, n_pix = self.state, self.n_pix
-        count, n_shadow = torch.stack([st["count"], st["n_shadow"]]).tolist()
+        with span("regen.sync"):
+            count, n_shadow = torch.stack([st["count"], st["n_shadow"]]).tolist()
         seeds = SeedMode(
             sample=st["seeds_sample"], wi=st["seeds_wi"], tp=st["seeds_tp"],
             pdf=st["seeds_pdf"], cache_p=st["cache_p"][:n_pix], cache_ns=st["cache_ns"][:n_pix],
@@ -467,17 +480,20 @@ def primary_prepass(
     Returns (seed_mode, seed_count, nrays_logical, nrays_physical):
     logical rays count the primary once per sample (comparable with the
     uncached loop), physical ones once per pixel."""
-    loop = PrepassLoop(scene, cfg, base_key, n_pix, spp_cap, spp_rounds,
-                       pixel_offset=pixel_offset, pixel_stride=pixel_stride, spp0=spp0,
-                       pix_chunk=pix_chunk)
-    step = loop.chunk
-    if graph_mod.use_graph(graph, scene.device):
-        step = graph_mod.GraphedLoop(step, scene.device)
-    for _ in range(loop.n_chunks):
-        step()
-        if loop.over():
-            loop.tail()
-    return loop.result()
+    with span("regen.prepass"):
+        with span("regen.context"):
+            loop = PrepassLoop(scene, cfg, base_key, n_pix, spp_cap, spp_rounds,
+                               pixel_offset=pixel_offset, pixel_stride=pixel_stride, spp0=spp0,
+                               pix_chunk=pix_chunk)
+        step = loop.chunk
+        if graph_mod.use_graph(graph, scene.device):
+            step = graph_mod.GraphedLoop(step, scene.device)
+        for _ in range(loop.n_chunks):
+            step()
+            if loop.over():
+                with span("regen.prepass_tail"):
+                    loop.tail()
+        return loop.result()
 
 
 def render_regen_cached(
@@ -507,7 +523,8 @@ def render_regen_cached(
         scene, cfg, base_key, n_pix, seed_count, lanes=lanes, pixel_offset=pixel_offset,
         pixel_stride=pixel_stride, spp0=spp0, seed_mode=seeds, graph=graph,
     )
-    stats = stats._replace(rays_physical=n_phys + int(nrays_loop))
+    with span("regen.sync"):
+        stats = stats._replace(rays_physical=n_phys + int(nrays_loop))
     return fb, n_log + nrays_loop, iters, stats
 
 
@@ -632,8 +649,9 @@ def regen_loop(
     zero = torch.zeros(C, device=dev)
 
     def more(st) -> bool:
-        m = (st["counter"] < total_samples) | st["alive"].any()
-        return bool(m | (st["buf_count"] > 0)) if blocker else bool(m)
+        with span("regen.sync"):
+            m = (st["counter"] < total_samples) | st["alive"].any()
+            return bool(m | (st["buf_count"] > 0)) if blocker else bool(m)
 
     def iterate(state) -> None:
         st = sort_lanes(state, scene_lo, scene_inv) if do_sort else state
@@ -836,22 +854,26 @@ def render_regen(
 
     Returns (framebuffer_sum [n_pix, 3] f32, logical rays traced (int64
     tensor: extension + shadow rays of live lanes), iterations, stats)."""
-    captured = graph_mod.use_graph(graph, scene.device)
-    st, iterate, more = regen_loop(scene, cfg, base_key, n_pix, total_samples, lanes=lanes,
-                                   pixel_offset=pixel_offset, pixel_stride=pixel_stride,
-                                   spp0=spp0, seed_mode=seed_mode)
-    step = functools.partial(iterate, st)
-    if captured:
-        step = graph_mod.GraphedLoop(step, scene.device)
-    iters = 0
-    if on_iter is not None:
-        on_iter(st)
-    while more(st):
-        iters += 1
-        step()
+    with span("regen.loop"):
+        captured = graph_mod.use_graph(graph, scene.device)
+        with span("regen.context"):
+            st, iterate, more = regen_loop(scene, cfg, base_key, n_pix, total_samples,
+                                           lanes=lanes, pixel_offset=pixel_offset,
+                                           pixel_stride=pixel_stride, spp0=spp0,
+                                           seed_mode=seed_mode)
+        step = functools.partial(iterate, st)
+        if captured:
+            step = graph_mod.GraphedLoop(step, scene.device)
+        iters = 0
         if on_iter is not None:
             on_iter(st)
-    blocker = "spilled" in st
-    stats = RegenStats(spilled=int(st["spilled"]) if blocker else 0,
-                       chains=int(st["chain_counter"]) if blocker else 0)
-    return st["fb"][:n_pix], st["nrays"], iters, stats
+        while more(st):
+            iters += 1
+            step()
+            if on_iter is not None:
+                on_iter(st)
+        stats = RegenStats()
+        if "spilled" in st:                           # the blocker queue's counts
+            with span("regen.sync"):
+                stats = RegenStats(spilled=int(st["spilled"]), chains=int(st["chain_counter"]))
+        return st["fb"][:n_pix], st["nrays"], iters, stats

@@ -33,6 +33,7 @@ from monte_carlo_path_tracing_tpu_torch.parallel.mesh import (
 )
 from monte_carlo_path_tracing_tpu_torch.scene.types import Materials, Scene
 from monte_carlo_path_tracing_tpu_torch.utils.config import RenderConfig
+from monte_carlo_path_tracing_tpu_torch.utils.profiling import span
 
 
 def _local_key(key: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -118,11 +119,15 @@ def make_regen_sharded(
                 pixel_offset=d, pixel_stride=nd,
             )
             nphys = nrays
-        counts = torch.stack([torch.as_tensor(n, dtype=torch.int64, device=fb.device)
-                              for n in (nrays, nphys)])
-        dist.all_reduce(counts, group=group)
-        out = (fb, int(counts[0]))
-        return out + (int(counts[1]),) if with_physical else out
+        # Under a profiler, the span is this rank's wait for the slowest.
+        with span("parallel.reduce"):
+            counts = torch.stack([torch.as_tensor(n, dtype=torch.int64, device=fb.device)
+                                  for n in (nrays, nphys)])
+            dist.all_reduce(counts, group=group)
+            out = (fb, int(counts[0]))
+            if with_physical:
+                out += (int(counts[1]),)
+        return out
 
     return fn
 

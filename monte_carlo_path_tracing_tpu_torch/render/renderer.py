@@ -25,6 +25,7 @@ from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.render.camera import generate_rays
 from monte_carlo_path_tracing_tpu_torch.scene.types import Scene
 from monte_carlo_path_tracing_tpu_torch.utils.config import RenderConfig
+from monte_carlo_path_tracing_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -77,7 +78,9 @@ def render_image_regen(
     prepass's camera trace), ``min(lanes, total)`` samples uncached; it
     touches no state of the render. Each timed launch ends with the
     framebuffer copied to the host, so ``seconds`` covers all its device
-    work.
+    work. Under a torch profiler each timed launch is a ``render.launch``
+    span up to its ``on_launch``, its host accumulation a
+    ``render.accumulate`` span inside it (``utils.profiling.span``).
     """
     from monte_carlo_path_tracing_tpu_torch.integrator.regen import (
         primary_cache_eligible, render_regen, render_regen_cached,
@@ -105,20 +108,25 @@ def render_image_regen(
     done = 0
     while done < cfg.spp:
         step = min(spp_per_launch, cfg.spp - done)
-        if use_cache:
-            fb, nrays, _, stats = render_regen_cached(
-                scene, cfg, key, n_pix, spp_per_launch, step, lanes=lanes, spp0=done
-            )
-        else:
-            fb, nrays, _, stats = render_regen(
-                scene, cfg, key, n_pix, n_pix * step, lanes=lanes, spp0=done
-            )
-        spilled += stats.spilled
-        fb_acc += fb.cpu().numpy()
-        rays += int(nrays)
-        done += step
+        with span("render.launch"):
+            if use_cache:
+                fb, nrays, _, stats = render_regen_cached(
+                    scene, cfg, key, n_pix, spp_per_launch, step, lanes=lanes, spp0=done
+                )
+            else:
+                fb, nrays, _, stats = render_regen(
+                    scene, cfg, key, n_pix, n_pix * step, lanes=lanes, spp0=done
+                )
+            spilled += stats.spilled
+            with span("regen.sync"):
+                rays += int(nrays)
+            done += step
+            with span("render.accumulate"):
+                fb_acc += fb.cpu().numpy()
+                mean = (None if on_launch is None
+                        else (fb_acc / done).reshape(cam.height, cam.width, 3))
         if on_launch is not None:
-            on_launch((fb_acc / done).reshape(cam.height, cam.width, 3), done)
+            on_launch(mean, done)
     seconds = time.perf_counter() - t0
     if spilled:
         # Those chains fell back to the restructured estimator: surfaced.

@@ -1,8 +1,10 @@
-"""Profiling: wall-clock phase timers, the device trace, operation counts.
+"""Profiling: wall-clock phase timers, the device trace, the launch path's
+spans, operation counts.
 
 Counterpart of ``monte_carlo_path_tracing_tpu/utils/profiling.py``, on
 ``torch.profiler`` where the JAX package uses ``jax.profiler`` and XLA's
-cost analysis.
+cost analysis. :func:`span` is the port's own: named ranges at the
+launch path's layer boundaries, on the profiler's clock.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from collections import defaultdict
 from typing import Dict, Iterator, Optional
 
 import torch
-from torch.autograd import DeviceType
+from torch.autograd import DeviceType, _profiler_enabled
 from torch.profiler import ProfilerActivity
 
 from monte_carlo_path_tracing_tpu_torch.utils.timing import materialize
@@ -58,6 +60,42 @@ class PhaseTimer:
         return json.dumps(self.summary(), indent=2)
 
 
+#: The spans of the launch path (name: what it covers). Only these names
+#: are emitted, and only while a torch profiler records.
+SPANS = {
+    "render.launch": "one timed launch of render_image_regen, up to its on_launch",
+    "render.accumulate": "the framebuffer's copy to the host, the add and the mean image",
+    "regen.prepass": "a primary_prepass call",
+    "regen.loop": "a render_regen call",
+    "regen.context": "the per-call build of accel, light tables, constants and state buffers",
+    "regen.prepass_tail": "a prepass chunk's overflow tail",
+    "regen.sync": "a host read of a device value (the loop's condition, a chunk's "
+                  "overflow predicate, a count)",
+    "graph.warm_up": "a captured loop's eager first step",
+    "graph.capture": "a step's capture and instantiation as a CUDA graph",
+    "parallel.reduce": "a sharded launch's count all_reduce and its host reads",
+}
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str) -> contextlib.AbstractContextManager:
+    """A named range of the launch path while a torch profiler records
+    (``device_trace``, or any ``torch.profiler.profile``): a host op
+    (``cpu_op``) named ``name`` in the trace, on the device events' clock;
+    otherwise a shared no-op context, after one check of the profiler's
+    state. It never synchronizes the device, reads a tensor or allocates.
+
+    The range is torch's ``_RecordFunctionFast``, a record function of
+    function scope, and not ``torch.profiler.record_function``: a
+    user-scope range that holds kernel launches also gets a copy on the
+    CUDA stream (``gpu_user_annotation``), which a reader of device
+    events can take for device work."""
+    if _profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
+
+
 @contextlib.contextmanager
 def device_trace(logdir: Optional[str],
                  device="cuda") -> Iterator[Optional[torch.profiler.profile]]:
@@ -70,7 +108,8 @@ def device_trace(logdir: Optional[str],
     On the card (``device`` of type cuda) it records CPU and CUDA activity,
     and raises if the trace holds no CUDA kernel: a trace that cannot see
     the device (no CUPTI) is an error, never a CPU-only trace. With
-    ``device="cpu"`` it records CPU activity only."""
+    ``device="cpu"`` it records CPU activity only. The trace holds the
+    launch path's :data:`SPANS` as host ops (:func:`span`)."""
     if not logdir:
         yield None
         return

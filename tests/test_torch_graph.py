@@ -13,7 +13,8 @@ regen_loop) and its CUDA graph machinery (integrator/graph.py), on the CPU.
 - The bookkeeping of a captured iteration, with stand-in graphs: launch
   counters rise by the captured launches once per replay, and a loop whose
   second iteration is captured (which runs nothing) and replayed keeps the
-  eager loop's iterations, rays and framebuffer.
+  eager loop's iterations, rays and framebuffer; its capture is one
+  ``graph.capture`` span under a profiler.
 The card runs the captured loop against the eager one (tests/test_torch_cuda.py,
 chip_smoke.py phase "graph")."""
 
@@ -24,6 +25,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from monte_carlo_path_tracing_tpu.core import rng as jrng
 from monte_carlo_path_tracing_tpu.integrator import regen as jregen
@@ -224,8 +226,12 @@ def test_graphed_loop_keeps_the_eager_loops_iterations(cornell_scene, monkeypatc
 
     monkeypatch.setattr(graph_mod, "use_graph", lambda graph, device: True)
     monkeypatch.setattr(graph_mod, "GraphedLoop", Loop)
-    fb, rays, iters, _ = regen.render_regen(ts, cfg, rng.base_key(SEED), 144, 288, lanes=LANES)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fb, rays, iters, _ = regen.render_regen(ts, cfg, rng.base_key(SEED), 144, 288,
+                                                lanes=LANES)
     (loop,) = loops
     assert iters == iters0 and loop.calls == iters0 and loop.captured.graph.replays == iters0 - 1
     assert int(rays) == int(rays0) and torch.equal(fb, fb0)
-    assert loop.capture_seconds == loop.captured.seconds > 0.0
+    captures = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+                if e.name() == "graph.capture"]
+    assert len(captures) == 1 and captures[0] > 0
