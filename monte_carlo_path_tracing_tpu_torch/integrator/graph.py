@@ -19,17 +19,20 @@ chunk, ``wavefront.bounce_loop``'s bounce) as follows:
 
 The loop's condition stays on the host: one read a replay, the ``cond`` of
 JAX's while_loop (the prepass: its ``lax.cond`` on the overflow tail). One
-graph serves one ``render_regen`` or ``primary_prepass`` call, or one
-``render_image``; its private memory pool holds one step's temporaries
-and goes with it. A capture that fails raises; nothing falls back to the
-eager loop. The first call and the capture each run inside a span
-(``graph.warm_up``, ``graph.capture``: ``utils.profiling.span``); a replay
-runs none.
+graph serves one job (``regen.RegenJob``: every launch of a
+``render_image_regen`` call, or the one launch of a ``render_regen`` /
+``primary_prepass`` call), or one ``render_image``; its private memory
+pool, which a job's prepass and loop graphs share, holds one step's
+temporaries and goes with it. A capture that fails raises; nothing falls
+back to the eager loop. The first call and the capture each run inside a
+span (``graph.warm_up``, ``graph.capture``: ``utils.profiling.span``); a
+replay runs none.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Callable
 
 import torch
@@ -54,12 +57,16 @@ class CapturedStep:
     kernels' launches of one captured step to their counters (the wrappers
     ran once, at capture, where nothing launched). ``graph`` and
     ``capture`` (a context manager factory taking the graph) default to
-    ``torch.cuda.CUDAGraph()`` and ``torch.cuda.graph``."""
+    ``torch.cuda.CUDAGraph()`` and ``torch.cuda.graph`` into the memory
+    pool ``pool`` (``torch.cuda.graph_pool_handle()``; None: the graph's
+    own)."""
 
     def __init__(self, step: Callable[[], None], graph=None,
-                 capture: Callable[..., contextlib.AbstractContextManager] | None = None):
+                 capture: Callable[..., contextlib.AbstractContextManager] | None = None,
+                 pool=None):
         self.graph = torch.cuda.CUDAGraph() if graph is None else graph
-        capture = torch.cuda.graph if capture is None else capture
+        if capture is None:
+            capture = functools.partial(torch.cuda.graph, pool=pool)
         before = launches.counts()
         try:
             with capture(self.graph):
@@ -76,14 +83,16 @@ class CapturedStep:
 
 class GraphedLoop:
     """Calls of ``step`` as a captured loop: the first runs eagerly on a side
-    stream, the second captures (``capture(step)``, a :class:`CapturedStep`
-    by default) and replays, every later one replays."""
+    stream, the second captures (``capture(step)``, by default a
+    :class:`CapturedStep` into the memory pool ``pool``) and replays, every
+    later one replays."""
 
     def __init__(self, step: Callable[[], None], device: torch.device,
-                 capture: Callable[[Callable[[], None]], CapturedStep] = CapturedStep):
+                 capture: Callable[[Callable[[], None]], CapturedStep] | None = None,
+                 pool=None):
         self.step = step
         self.device = device
-        self.capture = capture
+        self.capture = capture or functools.partial(CapturedStep, pool=pool)
         self.calls = 0
         self.captured: CapturedStep | None = None
 

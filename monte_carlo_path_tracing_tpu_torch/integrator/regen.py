@@ -31,6 +31,12 @@ and launch splitting, and consumes the same streams as the JAX package.
   chunk (:class:`PrepassLoop`) is one CUDA graph replay on the card.
 - :func:`render_regen_cached`: the pre-pass, then the seeded loop — the
   default route whenever :func:`primary_cache_eligible` holds.
+- :class:`RegenJob`: what a job keeps from launch to launch. Each of the
+  calls above renders one launch of a job: ``render_image_regen`` passes
+  one job to all its launches (``job=``), so that the scene context, the
+  state buffers and the captured steps are built and captured once and
+  every later launch rewrites the state in place and replays; any other
+  call is a job of one launch.
 
 Estimators: Veach MIS, split and BRDF-only, with the spherical-triangle or
 the uniform-area light sampler. ``ref_mis_weights`` adds the reference's
@@ -45,8 +51,9 @@ Forward-only, like the JAX loop.
 
 Spans (``utils.profiling.span``, recorded only under a torch profiler):
 ``regen.prepass`` and ``regen.loop`` cover a :func:`primary_prepass` and
-a :func:`render_regen` call, ``regen.context`` the per-call build of
-accel, light tables, constants and state buffers in each,
+a :func:`render_regen` call, ``regen.context`` in each the job's first
+build of accel, light tables, constants and state buffers, or in a later
+launch the in-place reset of that state and the launch's scalar writes,
 ``regen.prepass_tail`` an overflow tail, and ``regen.sync`` each host
 read of a device value: the loop's condition, a chunk's overflow
 predicate and the counts.
@@ -134,6 +141,25 @@ def _check_supported(cfg: RenderConfig) -> None:
         raise ValueError(f"render_regen does not run estimator {cfg.estimator!r}")
 
 
+class SceneContext(NamedTuple):
+    """What the prepass and the loop read of the scene besides its own
+    tensors, built once a job (:func:`scene_context`)."""
+
+    accel: object               # the triangle accel
+    tri_to_light: torch.Tensor  # [T] light index of each triangle (-1: none)
+    consts: object              # Arvo's packed per-light constants
+    table: object               # the spherical sampler's light table
+    light_accel: object         # the lights-only accel (MIS with ref_mis_weights), else None
+
+
+def scene_context(scene: Scene, cfg: RenderConfig) -> SceneContext:
+    light_accel = (ops_intersect.build_light_accel(scene)
+                   if cfg.estimator == EST_MIS and cfg.ref_mis_weights else None)
+    return SceneContext(ops_intersect.build_accel(scene), common.light_index_table(scene),
+                        arvo_cuda.pack_consts(scene), light_spherical.light_table(scene),
+                        light_accel)
+
+
 def _nee_full(scene, cfg, accel, tri_to_light, si, ls, alive):
     """The reference's MIS light strategy with occluder shading
     (main.cpp:450-464): the light ray's nearest hit (K1 on CUDA tensors,
@@ -164,10 +190,11 @@ def chain_key(base_key: torch.Tensor, spp0: int = 0) -> torch.Tensor:
     return rng.fold_in(rng.fold_in(base_key, _CHAIN_TAG), spp0)
 
 
-def lane_keys(base_key, sample, pixel, n_pix: int, spp0: int = 0, pixel_stride: int = 1,
+def lane_keys(base_key, sample, pixel, n_pix: int, spp0=0, pixel_stride: int = 1,
               pixel_offset: int = 0, chain_base=None) -> torch.Tensor:
     """[C, 2] stream keys of the (sample, local pixel) each lane traces:
-    fold(fold(base, spp0 + sample // n_pix), global pixel id). With
+    fold(fold(base, spp0 + sample // n_pix), global pixel id), ``spp0`` an
+    int or a 0-dim int64 tensor on the lanes' device. With
     ``chain_base`` (:func:`chain_key`; blocker mode), a negative sample is
     chain -1 - sample and takes fold(chain_base, -1 - sample); the
     division then uses 0 for it, as JAX's ``where(is_chain, 0, sample)``
@@ -242,8 +269,12 @@ class PrepassLoop:
     ``fori_loop`` over pixel chunks (regen.py:624-630 of the JAX package):
 
     - ``state``: the outputs being filled (``fb_pre``, ``cache_*``,
-      ``seeds_*``, ``count``, ``n_shadow``), the chunk index ``c`` and the
-      chunk's survivor count ``n_live``, each its own device buffer;
+      ``seeds_*``, ``count``, ``n_shadow``), the chunk index ``c``, the
+      chunk's survivor count ``n_live`` and the launch's values that a
+      chunk reads (``rounds``, its spp rounds, and ``k_r``, the [spp_cap,
+      2] keys of rounds spp0, spp0 + 1, ...), each its own device buffer;
+    - :meth:`reset`: rewrite ``state`` in place for a launch of
+      ``spp_rounds`` rounds from ``spp0`` (the constructor's values);
     - :meth:`chunk`: chunk ``c`` of JAX's body: trace, prepare and draw,
       stably partition the survivors to the front, shade the fixed prefix
       ``order[:P]`` (its dead rows masked), write the chunk's rows and
@@ -255,25 +286,23 @@ class PrepassLoop:
     - :meth:`tail`: shade that chunk's overflow ``order[P:]`` and rewrite
       its radiance rows, eagerly: the sums and seeds of an unsplit pass;
     - :meth:`result`: :func:`primary_prepass`'s return value, with one
-      host read of (count, n_shadow)."""
+      host read of (count, n_shadow); its seeds are views of ``state``.
+
+    ``ctx``: the job's :class:`SceneContext` (None: built here)."""
 
     def __init__(self, scene: Scene, cfg: RenderConfig, base_key: torch.Tensor, n_pix: int,
                  spp_cap: int, spp_rounds: int, pixel_offset: int = 0, pixel_stride: int = 1,
-                 spp0: int = 0, pix_chunk: int = 1 << 15):
+                 spp0: int = 0, pix_chunk: int = 1 << 15, ctx: SceneContext | None = None):
         _check_supported(cfg)
         self.scene, self.cfg = scene, cfg
-        self.spp_rounds = min(int(spp_rounds), int(spp_cap))
         self.n_pix, self.pixel_stride, self.pixel_offset = n_pix, pixel_stride, pixel_offset
         dev = scene.device
-        self.accel = ops_intersect.build_accel(scene)
-        self.tri_to_light = common.light_index_table(scene)
-        self.consts = arvo_cuda.pack_consts(scene)
-        self.table = light_spherical.light_table(scene)
+        self.base_key = base_key.to(dev)
+        ctx = scene_context(scene, cfg) if ctx is None else ctx
+        self.accel, self.tri_to_light, self.consts, self.table, self.light_accel = ctx
         self.spherical = cfg.light_sampler == LS_SPHERICAL
         self.is_mis = cfg.estimator == EST_MIS
         self.is_split = cfg.estimator == EST_SPLIT
-        self.light_accel = (ops_intersect.build_light_accel(scene)
-                            if self.is_mis and cfg.ref_mis_weights else None)
         self.picks = (self.is_mis or self.is_split) and self.spherical
         u_ax, v_ax, n_ax, dist = camera_basis(scene.camera)
         self.camera = (scene.camera, u_ax, v_ax, n_ax, dist, pixel_len(scene.camera, dist))
@@ -309,12 +338,32 @@ class PrepassLoop:
             "n_shadow": torch.zeros((), **i64),
             "c": torch.zeros((), **i64),
             "n_live": torch.zeros((), **i64),
+            "rounds": torch.zeros((), **i64),
+            "k_r": torch.zeros((R, 2), **i64),
         }
+        st = self.state
+        self.seeds = SeedMode(
+            sample=st["seeds_sample"], wi=st["seeds_wi"], tp=st["seeds_tp"],
+            pdf=st["seeds_pdf"], cache_p=st["cache_p"][:n_pix], cache_ns=st["cache_ns"][:n_pix],
+            cache_wsum=st["cache_wsum"][:n_pix], cache_tri=st["cache_tri"][:n_pix],
+            fb_pre=st["fb_pre"][:n_pix],
+        )
         self.r_ids = torch.arange(R, device=dev)[:, None]
-        self.r_live = self.r_ids < self.spp_rounds
         self.lane = torch.arange(self.pix_chunk, device=dev)
-        self.k_r = rng.fold_in(base_key.to(dev), spp0 + torch.arange(R, device=dev))  # [R, 2]
         self.last: dict = {}
+        self.reset(spp0, spp_rounds)
+
+    def reset(self, spp0: int, spp_rounds: int) -> None:
+        """A launch's start: the counts and the chunk index zeroed, its
+        rounds (clamped to spp_cap) and round keys written. Every other
+        buffer is written before it is read: ``fb_pre`` and the cache row
+        by row by the chunks, the seeds up to the count."""
+        st = self.state
+        self.spp_rounds = min(int(spp_rounds), self.r_ids.shape[0])   # the host's copy
+        for k in ("count", "n_shadow", "c", "n_live"):
+            st[k].zero_()
+        st["rounds"].fill_(self.spp_rounds)
+        st["k_r"].copy_(rng.fold_in(self.base_key, spp0 + self.r_ids[:, 0]))
 
     def chunk(self) -> None:
         scene, cfg, st, chunk, S = self.scene, self.cfg, self.state, self.pix_chunk, self.S
@@ -327,7 +376,8 @@ class PrepassLoop:
         # Depth-0 emission: tp = 1 and weight 1 for every estimator, the
         # same for every sample of the pixel.
         em_add = torch.where((hitok & si.is_light)[:, None],
-                             si.emission * float(self.spp_rounds), torch.zeros_like(si.emission))
+                             si.emission * st["rounds"].to(si.emission.dtype),
+                             torch.zeros_like(si.emission))
         shade0 = hitok & ~si.is_light
         ck = {"pix_local": pix_local, "si": si, "em_add": em_add, "lidx": None}
         if self.picks:
@@ -337,7 +387,7 @@ class PrepassLoop:
             ck["wsum"] = torch.zeros(chunk, device=scene.device)
 
         # All rounds of the chunk as one [S] batch, row-major (round, pixel).
-        lk0 = rng.fold_in(rng.fold_in(self.k_r[:, None, :], gpix[None, :]).reshape(S, 2), 0)
+        lk0 = rng.fold_in(rng.fold_in(st["k_r"][:, None, :], gpix[None, :]).reshape(S, 2), 0)
         survive, _ = common.russian_roulette(rng.fold_in(lk0, rng.P_RR), S, cfg.rr_prob)
         if self.picks:
             # rng.pick_weighted against the cached CDF, densely: the CDF is
@@ -346,7 +396,7 @@ class PrepassLoop:
             thresh = (u_d.view(-1, chunk) * ck["wsum"][None, :]).t().contiguous()
             ck["lidx"] = torch.clamp(torch.searchsorted(cdf, thresh, right=True),
                                      max=weights.shape[-1] - 1).t().reshape(S).to(torch.int32)
-        hit_live = (shade0[None, :] & self.r_live).reshape(S)
+        hit_live = (shade0[None, :] & (self.r_ids < st["rounds"])).reshape(S)
         # mis: RR gates both strategies; brdf: the continuation; split: only
         # the continuation (its direct term runs for every hit sample).
         part = hit_live if self.is_split else hit_live & survive
@@ -358,8 +408,7 @@ class PrepassLoop:
                   fb_acc=torch.zeros((chunk, 3), device=scene.device))
         self.last = ck
         st["n_live"].copy_(part.sum())
-        if self.spp_rounds:          # a 0-round pass (a warm-up) has no live row
-            self._stage(ck["order"][:self.P])
+        self._stage(ck["order"][:self.P])      # a 0-round launch has no live row
         st["fb_pre"].index_copy_(0, pix_local, em_add + ck["fb_acc"])
         st["cache_p"].index_copy_(0, pix_local, si.p)
         st["cache_ns"].index_copy_(0, pix_local, si.ns)
@@ -434,13 +483,7 @@ class PrepassLoop:
         st, n_pix = self.state, self.n_pix
         with span("regen.sync"):
             count, n_shadow = torch.stack([st["count"], st["n_shadow"]]).tolist()
-        seeds = SeedMode(
-            sample=st["seeds_sample"], wi=st["seeds_wi"], tp=st["seeds_tp"],
-            pdf=st["seeds_pdf"], cache_p=st["cache_p"][:n_pix], cache_ns=st["cache_ns"][:n_pix],
-            cache_wsum=st["cache_wsum"][:n_pix], cache_tri=st["cache_tri"][:n_pix],
-            fb_pre=st["fb_pre"][:n_pix],
-        )
-        return seeds, count, self.spp_rounds * n_pix + n_shadow, n_pix + n_shadow
+        return self.seeds, count, self.spp_rounds * n_pix + n_shadow, n_pix + n_shadow
 
 
 def primary_prepass(
@@ -455,6 +498,7 @@ def primary_prepass(
     spp0: int = 0,
     pix_chunk: int = 1 << 15,
     graph: bool | None = None,
+    job: RegenJob | None = None,
 ):
     """Per-pixel primary hit and dense depth-0 shading for ``spp_rounds``
     rounds (clamped to ``spp_cap``, which sizes the seed buffer), pixel
@@ -472,22 +516,29 @@ def primary_prepass(
        tail, which JAX runs under ``lax.cond``) are shaded after the
        chunk when the host read of ``n_live > P`` says so.
 
-    ``graph`` as in :func:`render_regen`: on CUDA tensors (``None``) chunk
-    0 runs eagerly, chunk 1 is captured as a CUDA graph, and every later
-    chunk is one replay and the one predicate read; ``False`` runs every
-    chunk eagerly; ``True`` on CPU tensors raises.
+    ``graph`` as in :func:`render_regen`: on CUDA tensors (``None``) the
+    job's first chunk runs eagerly, its second is captured as a CUDA graph,
+    and every later chunk of every launch is one replay and the one
+    predicate read; ``False`` runs every chunk eagerly; ``True`` on CPU
+    tensors raises. ``job`` (:class:`RegenJob`) as in :func:`render_regen`.
 
     Returns (seed_mode, seed_count, nrays_logical, nrays_physical):
     logical rays count the primary once per sample (comparable with the
-    uncached loop), physical ones once per pixel."""
+    uncached loop), physical ones once per pixel. The seeds are the job's
+    buffers, which its next launch overwrites."""
+    job = RegenJob() if job is None else job
     with span("regen.prepass"):
         with span("regen.context"):
-            loop = PrepassLoop(scene, cfg, base_key, n_pix, spp_cap, spp_rounds,
-                               pixel_offset=pixel_offset, pixel_stride=pixel_stride, spp0=spp0,
-                               pix_chunk=pix_chunk)
-        step = loop.chunk
-        if graph_mod.use_graph(graph, scene.device):
-            step = graph_mod.GraphedLoop(step, scene.device)
+            loop = job.part(
+                "prepass",
+                (id(scene), cfg, id(base_key), n_pix, spp_cap, pixel_offset, pixel_stride,
+                 pix_chunk),
+                lambda: PrepassLoop(scene, cfg, base_key, n_pix, spp_cap, spp_rounds,
+                                    pixel_offset=pixel_offset, pixel_stride=pixel_stride,
+                                    spp0=spp0, pix_chunk=pix_chunk,
+                                    ctx=job.context(scene, cfg)))
+            loop.reset(spp0, spp_rounds)
+        step = job.step("prepass", loop.chunk, graph, scene.device)
         for _ in range(loop.n_chunks):
             step()
             if loop.over():
@@ -508,20 +559,23 @@ def render_regen_cached(
     pixel_stride: int = 1,
     spp0: int = 0,
     graph: bool | None = None,
+    job: RegenJob | None = None,
 ):
     """Primary-cache render: :func:`primary_prepass`, then the loop over
-    its seeds (depth >= 1 only; ``graph`` as in :func:`render_regen`, for
-    the prepass's chunks and the loop's iterations). The
+    its seeds (depth >= 1 only; ``graph`` and ``job`` as in
+    :func:`render_regen`, for the prepass's chunks and the loop's
+    iterations, which share the job's scene context). The
     same estimate and streams as :func:`render_regen` over ``n_pix *
     spp_rounds`` samples; returns the same (fb, nrays, iters, stats) with
     logical rays, the physical count in ``stats.rays_physical``."""
+    job = RegenJob() if job is None else job
     seeds, seed_count, n_log, n_phys = primary_prepass(
         scene, cfg, base_key, n_pix, spp_cap, spp_rounds,
-        pixel_offset=pixel_offset, pixel_stride=pixel_stride, spp0=spp0, graph=graph,
+        pixel_offset=pixel_offset, pixel_stride=pixel_stride, spp0=spp0, graph=graph, job=job,
     )
     fb, nrays_loop, iters, stats = render_regen(
         scene, cfg, base_key, n_pix, seed_count, lanes=lanes, pixel_offset=pixel_offset,
-        pixel_stride=pixel_stride, spp0=spp0, seed_mode=seeds, graph=graph,
+        pixel_stride=pixel_stride, spp0=spp0, seed_mode=seeds, graph=graph, job=job,
     )
     with span("regen.sync"):
         stats = stats._replace(rays_physical=n_phys + int(nrays_loop))
@@ -552,20 +606,31 @@ def regen_loop(
       every tensor of it in place and touches nothing else, so that it can
       be captured as a CUDA graph and replayed (``integrator/graph.py``);
     - ``more(state)``: the loop's condition (a sample left, a lane alive or
-      a chain queued), one host read."""
+      a chain queued), one host read.
+
+    The launch's own values are device scalars of ``state`` that
+    ``iterate`` reads: ``spp0``, ``total`` (``total_samples``) and, with
+    the blocker queue, ``chain_base`` (:func:`chain_key`)."""
+    state, iterate, more, reset = _loop(scene, cfg, base_key, n_pix, lanes, pixel_offset,
+                                        pixel_stride, seed_mode, scene_context(scene, cfg))
+    reset(spp0, total_samples)
+    return state, iterate, more
+
+
+def _loop(scene: Scene, cfg: RenderConfig, base_key: torch.Tensor, n_pix: int, lanes: int,
+          pixel_offset: int, pixel_stride: int, seed_mode: SeedMode | None, ctx: SceneContext):
+    """:func:`regen_loop`'s (state, iterate, more) before a launch, and
+    ``reset(spp0, total_samples)``, which rewrites ``state`` in place to
+    that launch's start: every buffer to its first value (``fb`` to the
+    seeds' ``fb_pre``) and the launch's scalars."""
     _check_supported(cfg)
     blocker = bool(cfg.mis_blocker_compat) and cfg.estimator == EST_MIS
     if blocker and seed_mode is not None:
         raise ValueError("the primary-hit cache excludes mis_blocker_compat")
     dev = scene.device
     base_key = base_key.to(dev)
-    accel = ops_intersect.build_accel(scene)
-    tri_to_light = common.light_index_table(scene)
-    consts = arvo_cuda.pack_consts(scene)
-    table = light_spherical.light_table(scene)
+    accel, tri_to_light, consts, table, light_accel = ctx
     est = cfg.estimator
-    light_accel = (ops_intersect.build_light_accel(scene) if est == EST_MIS and cfg.ref_mis_weights
-                   else None)
     # accel="auto": in-loop culling and the lane sort from the triangle
     # count (JAX regen.py:717-722); an explicit ray_sort sorts either way.
     loop_cull, do_sort = False, cfg.ray_sort
@@ -580,28 +645,27 @@ def regen_loop(
     C = int(lanes)
     w_rr = 1.0 / cfg.rr_prob
     lane_ids = torch.arange(C, dtype=torch.int64, device=dev)
-    chain_base = chain_key(base_key, spp0) if blocker else None
 
-    def lane_stream(sample, pixel):
-        return lane_keys(base_key, sample, pixel, n_pix, spp0, pixel_stride, pixel_offset,
-                         chain_base)
+    def lane_stream(st, sample, pixel):
+        return lane_keys(base_key, sample, pixel, n_pix, st["spp0"], pixel_stride, pixel_offset,
+                         st["chain_base"] if blocker else None)
 
-    def primary_rays(sample, pixel):
+    def primary_rays(st, sample, pixel):
         """Camera rays of (sample, local pixel); the jitter draw, when on,
         comes from the sample's stream at depth 0."""
         jitter = None
         if cfg.pixel_jitter:
-            lk = lane_stream(sample, pixel)
+            lk = lane_stream(st, sample, pixel)
             jitter = rng.uniform(rng.bounce_key(lk, 0, rng.P_PIXEL_JITTER), (C, 2), -0.5, 0.5)
         return primary_dirs(cam, u_ax, v_ax, n_ax, dist, plen,
                             pixel * pixel_stride + pixel_offset, jitter)
 
-    def pull(new_sample):
+    def pull(st, new_sample):
         """(pixel, sample, depth, ro, rd, ns, excl, tp, pdf, wsum) of the
         samples lanes pull: camera rays at depth 0, or seeds at depth 1."""
         if seed_mode is None:
             pixel = new_sample % n_pix
-            ro, rd = primary_rays(new_sample, pixel)
+            ro, rd = primary_rays(st, new_sample, pixel)
             return (pixel, new_sample, 0, ro, rd, rd, ops_intersect.NO_HIT, 1.0, 1.0, 0.0)
         sidx = torch.clamp(new_sample, 0, seed_mode.sample.shape[0] - 1)
         sample = seed_mode.sample[sidx]
@@ -610,54 +674,61 @@ def regen_loop(
                 seed_mode.cache_ns[pixel], seed_mode.cache_tri[pixel], seed_mode.tp[sidx],
                 seed_mode.pdf[sidx], seed_mode.cache_wsum[pixel])
 
-    # Every entry its own buffer: iterate() writes them in place.
-    i64 = dict(dtype=torch.int64, device=dev)
-    z_up = torch.zeros((C, 3), device=dev)
-    z_up[:, 2] = 1.0
-    state = {
-        "alive": torch.zeros(C, dtype=torch.bool, device=dev),
-        "pixel": torch.zeros(C, **i64), "sample": torch.zeros(C, **i64),
-        "depth": torch.zeros(C, **i64),
-        "ro": torch.zeros((C, 3), device=dev), "rd": z_up.clone(),
-        "excl": torch.full((C,), ops_intersect.NO_HIT, dtype=torch.int32, device=dev),
-        "tp": torch.ones((C, 3), device=dev), "L": torch.zeros((C, 3), device=dev),
-        "prev_pb": torch.ones(C, device=dev), "prev_p": torch.zeros((C, 3), device=dev),
-        "prev_ns": z_up, "prev_w": torch.zeros(C, device=dev),
+    # name: (shape, dtype, value at a launch's start). Every entry its own
+    # buffer: iterate() writes them in place.
+    i64, f32, i32, no_hit = torch.int64, torch.float32, torch.int32, ops_intersect.NO_HIT
+    up = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    fills = {
+        "alive": ((C,), torch.bool, False),
+        "pixel": ((C,), i64, 0), "sample": ((C,), i64, 0), "depth": ((C,), i64, 0),
+        "ro": ((C, 3), f32, 0.0), "rd": ((C, 3), f32, up), "excl": ((C,), i32, no_hit),
+        "tp": ((C, 3), f32, 1.0), "L": ((C, 3), f32, 0.0),
+        "prev_pb": ((C,), f32, 1.0), "prev_p": ((C, 3), f32, 0.0),
+        "prev_ns": ((C, 3), f32, up), "prev_w": ((C,), f32, 0.0),
     }
     if blocker:
         # The chain queue: C + 1 rows, row C the sink of spilled writes.
-        state.update({
-            "buf_ro": torch.zeros((C + 1, 3), device=dev),
-            "buf_rd": torch.zeros((C + 1, 3), device=dev),
-            "buf_tp": torch.zeros((C + 1, 3), device=dev),
-            "buf_pixel": torch.zeros(C + 1, **i64),
-            "buf_excl": torch.full((C + 1,), ops_intersect.NO_HIT, dtype=torch.int32,
-                                   device=dev),
-            "buf_sample": torch.zeros(C + 1, **i64),
-            "buf_depth": torch.zeros(C + 1, **i64),
-            "buf_count": torch.zeros((), **i64),
-            "chain_counter": torch.zeros((), **i64),
-            "spilled": torch.zeros((), **i64),
+        fills.update({
+            "buf_ro": ((C + 1, 3), f32, 0.0), "buf_rd": ((C + 1, 3), f32, 0.0),
+            "buf_tp": ((C + 1, 3), f32, 0.0), "buf_pixel": ((C + 1,), i64, 0),
+            "buf_excl": ((C + 1,), i32, no_hit), "buf_sample": ((C + 1,), i64, 0),
+            "buf_depth": ((C + 1,), i64, 0), "buf_count": ((), i64, 0),
+            "chain_counter": ((), i64, 0), "spilled": ((), i64, 0),
         })
-    state["counter"] = torch.zeros((), **i64)
-    state["nrays"] = torch.zeros((), **i64)
     # Dead lanes write their pixel row, live lanes their own dummy row
     # n_pix + lane, which is dropped at the end.
-    state["fb"] = torch.zeros((n_pix + C, 3), device=dev)
-    if seed_mode is not None:
-        state["fb"][:n_pix] = seed_mode.fb_pre
+    fills.update(counter=((), i64, 0), nrays=((), i64, 0), fb=((n_pix + C, 3), f32, 0.0))
+    state = {k: torch.empty(shape, dtype=dt, device=dev) for k, (shape, dt, _) in fills.items()}
+    # The launch's own values, read by the (captured) iteration.
+    state.update(spp0=torch.zeros((), dtype=i64, device=dev),
+                 total=torch.zeros((), dtype=i64, device=dev))
+    if blocker:
+        state["chain_base"] = torch.zeros(2, dtype=i64, device=dev)
     zero = torch.zeros(C, device=dev)
+
+    def reset(spp0: int, total_samples: int) -> None:
+        for k, (_, _, v) in fills.items():
+            if torch.is_tensor(v):
+                state[k].copy_(v)
+            else:
+                state[k].fill_(v)
+        if seed_mode is not None:
+            state["fb"][:n_pix].copy_(seed_mode.fb_pre)
+        state["spp0"].fill_(spp0)
+        state["total"].fill_(total_samples)
+        if blocker:
+            state["chain_base"].copy_(chain_key(base_key, spp0))
 
     def more(st) -> bool:
         with span("regen.sync"):
-            m = (st["counter"] < total_samples) | st["alive"].any()
+            m = (st["counter"] < st["total"]) | st["alive"].any()
             return bool(m | (st["buf_count"] > 0)) if blocker else bool(m)
 
     def iterate(state) -> None:
         st = sort_lanes(state, scene_lo, scene_inv) if do_sort else state
         alive, depth, tp, L = st["alive"], st["depth"], st["tp"], st["L"]
         counter, fb = st["counter"], st["fb"]
-        lk_d = rng.fold_in(lane_stream(st["sample"], st["pixel"]), depth)
+        lk_d = rng.fold_in(lane_stream(st, st["sample"], st["pixel"]), depth)
 
         # ---- one bounce for live lanes (wavefront._bounce_mis /
         #      _bounce_split / _bounce_brdf semantics) ----
@@ -763,11 +834,11 @@ def regen_loop(
             src = torch.clamp(buf_count - 1 - rank, 0, C)
             rank = rank - buf_count
             out["buf_count"] = buf_count - take_chain.sum()
-        take = free & (rank < total_samples - counter)
+        take = free & (rank < st["total"] - counter)
         if blocker:
             take = take & ~take_chain
         pixel_new, sample_new, depth_new, ro_new, rd_new, ns_new, excl_new, tp_new, pb_new, \
-            wsum_new = pull(counter + rank)
+            wsum_new = pull(st, counter + rank)
 
         def sel(new, queued, cur):
             """take -> new sample, take_chain -> queued chain, else cur."""
@@ -801,7 +872,7 @@ def regen_loop(
         for k, v in out.items():
             state[k].copy_(v)
 
-    return state, iterate, more
+    return state, iterate, more, reset
 
 
 def render_regen(
@@ -817,6 +888,7 @@ def render_regen(
     seed_mode: SeedMode | None = None,
     on_iter: Callable[[dict], None] | None = None,
     graph: bool | None = None,
+    job: RegenJob | None = None,
 ):
     """Render ``total_samples`` paths distributed round-robin over
     ``n_pix`` local pixels (local pixel i is global pixel
@@ -842,28 +914,36 @@ def render_regen(
 
     ``graph``: ``None`` (the default) captures the iteration as a CUDA
     graph on CUDA tensors and replays it (``integrator/graph.py``: the
-    first iteration eager, the second captured, one replay each after) and
-    runs it eagerly on the CPU; ``False`` runs it eagerly; ``True`` on CPU
-    tensors raises. Both give the same iterations, rays and framebuffer up
-    to the order of ``index_add_``'s atomic additions.
+    job's first iteration eager, its second captured, one replay each
+    after) and runs it eagerly on the CPU; ``False`` runs it eagerly;
+    ``True`` on CPU tensors raises. Both give the same iterations, rays and
+    framebuffer up to the order of ``index_add_``'s atomic additions.
+
+    ``job``: the :class:`RegenJob` this call is a launch of (None: a job of
+    this one launch). Its first launch builds the loop's state and its
+    graph; a later one resets the state in place and replays. Its calls
+    keep every argument but ``spp0`` and ``total_samples``, and the
+    cached route's seeds are its prepass's.
 
     ``on_iter(state)``, when given, sees the loop state (the dict of
     :func:`regen_loop`) before the first iteration and after each one. Its
     tensors are the loop's own buffers, which the next iteration (or
     replay) overwrites: a caller that keeps them clones them.
 
-    Returns (framebuffer_sum [n_pix, 3] f32, logical rays traced (int64
-    tensor: extension + shadow rays of live lanes), iterations, stats)."""
+    Returns (framebuffer_sum [n_pix, 3] f32, a view of the job's buffer
+    that its next launch overwrites; logical rays traced (int64 tensor:
+    extension + shadow rays of live lanes); iterations; stats)."""
+    job = RegenJob() if job is None else job
     with span("regen.loop"):
-        captured = graph_mod.use_graph(graph, scene.device)
         with span("regen.context"):
-            st, iterate, more = regen_loop(scene, cfg, base_key, n_pix, total_samples,
-                                           lanes=lanes, pixel_offset=pixel_offset,
-                                           pixel_stride=pixel_stride, spp0=spp0,
-                                           seed_mode=seed_mode)
-        step = functools.partial(iterate, st)
-        if captured:
-            step = graph_mod.GraphedLoop(step, scene.device)
+            st, iterate, more, reset = job.part(
+                "loop",
+                (id(scene), cfg, id(base_key), n_pix, lanes, pixel_offset, pixel_stride,
+                 id(seed_mode)),
+                lambda: _loop(scene, cfg, base_key, n_pix, lanes, pixel_offset, pixel_stride,
+                              seed_mode, job.context(scene, cfg)))
+            reset(spp0, total_samples)
+        step = job.step("loop", functools.partial(iterate, st), graph, scene.device)
         iters = 0
         if on_iter is not None:
             on_iter(st)
@@ -876,4 +956,61 @@ def render_regen(
         if "spilled" in st:                           # the blocker queue's counts
             with span("regen.sync"):
                 stats = RegenStats(spilled=int(st["spilled"]), chains=int(st["chain_counter"]))
-        return st["fb"][:n_pix], st["nrays"], iters, stats
+        return st["fb"][:n_pix], st["nrays"].clone(), iters, stats
+
+
+class RegenJob:
+    """What a job keeps from launch to launch, built at its first launch:
+    the scene context (:class:`SceneContext`), the prepass's and the
+    loop's state (:class:`PrepassLoop`, :func:`regen_loop`) and their
+    captured steps (one ``graph.GraphedLoop`` each, in one memory pool).
+
+    ``render_image_regen`` makes one for its call and passes it to every
+    launch (``job=`` of :func:`render_regen_cached` / :func:`render_regen`);
+    any other call makes its own for its one launch. A later launch
+    rewrites the state in place and writes its ``spp0``, rounds and samples
+    into device scalars that the captured steps read, so it builds,
+    warms up, captures and allocates nothing, and each step is one replay.
+    A launch that changes an argument its part was built from (scene,
+    configuration, key, sizes) raises. :meth:`close` (or the end of a
+    ``with`` block) frees it all; nothing is kept across jobs."""
+
+    def __init__(self):
+        self.parts: dict = {}       # name -> (the arguments it was built from, the part)
+        self.pool = None
+
+    def __enter__(self) -> RegenJob:
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        self.parts.clear()
+        self.pool = None
+
+    def part(self, name: str, fixed: tuple, build: Callable[[], object]):
+        """The part ``name``, ``build()`` at its first call; raises where
+        ``fixed`` differs from that call's."""
+        have = self.parts.get(name)
+        if have is None:
+            have = self.parts[name] = (fixed, build())
+        elif have[0] != fixed:
+            raise ValueError(f"a launch of this job changed what its {name} was built from: "
+                             f"{fixed} against {have[0]}")
+        return have[1]
+
+    def context(self, scene: Scene, cfg: RenderConfig) -> SceneContext:
+        return self.part("context", (id(scene), cfg), lambda: scene_context(scene, cfg))
+
+    def step(self, name: str, fn: Callable[[], None], graph: bool | None,
+             device: torch.device) -> Callable[[], None]:
+        """``fn``, a step of the job's loop ``name``, as its launch runs it:
+        the job's one GraphedLoop of it where ``graph`` captures on
+        ``device`` (``graph.use_graph``), else ``fn`` itself."""
+        if not graph_mod.use_graph(graph, device):
+            return fn
+        if self.pool is None and device.type == "cuda":
+            self.pool = torch.cuda.graph_pool_handle()     # the steps never run at once
+        return self.part("graph." + name, (), lambda: graph_mod.GraphedLoop(fn, device,
+                                                                            pool=self.pool))

@@ -81,9 +81,15 @@ def render_image_regen(
     work. Under a torch profiler each timed launch is a ``render.launch``
     span up to its ``on_launch``, its host accumulation a
     ``render.accumulate`` span inside it (``utils.profiling.span``).
+
+    The call is one job (``integrator.regen.RegenJob``), which every launch
+    passes on: the scene context, the state buffers and the captured
+    prepass chunk and loop iteration are built and captured in the first
+    launches (the warm-up's and the first timed one) and replayed in every
+    later one, and freed when the call returns.
     """
     from monte_carlo_path_tracing_tpu_torch.integrator.regen import (
-        primary_cache_eligible, render_regen, render_regen_cached,
+        RegenJob, primary_cache_eligible, render_regen, render_regen_cached,
     )
 
     cfg.validate()
@@ -94,40 +100,43 @@ def render_image_regen(
     key = rng.base_key(cfg.seed, device=scene.device)
     spp_per_launch = max(1, min(cfg.spp, max_samples_per_launch // n_pix))
 
-    if use_cache:
-        render_regen_cached(scene, cfg, key, n_pix, spp_per_launch, 0, lanes=lanes)
-    else:
-        render_regen(scene, cfg, key, n_pix, min(lanes, n_pix * cfg.spp), lanes=lanes)
-    if scene.device.type == "cuda":
-        torch.cuda.synchronize(scene.device)
+    with RegenJob() as job:
+        if use_cache:
+            render_regen_cached(scene, cfg, key, n_pix, spp_per_launch, 0, lanes=lanes, job=job)
+        else:
+            render_regen(scene, cfg, key, n_pix, min(lanes, n_pix * cfg.spp), lanes=lanes,
+                         job=job)
+        if scene.device.type == "cuda":
+            torch.cuda.synchronize(scene.device)
 
-    t0 = time.perf_counter()
-    fb_acc = np.zeros((n_pix, 3), np.float32)
-    rays = 0
-    spilled = 0
-    done = 0
-    while done < cfg.spp:
-        step = min(spp_per_launch, cfg.spp - done)
-        with span("render.launch"):
-            if use_cache:
-                fb, nrays, _, stats = render_regen_cached(
-                    scene, cfg, key, n_pix, spp_per_launch, step, lanes=lanes, spp0=done
-                )
-            else:
-                fb, nrays, _, stats = render_regen(
-                    scene, cfg, key, n_pix, n_pix * step, lanes=lanes, spp0=done
-                )
-            spilled += stats.spilled
-            with span("regen.sync"):
-                rays += int(nrays)
-            done += step
-            with span("render.accumulate"):
-                fb_acc += fb.cpu().numpy()
-                mean = (None if on_launch is None
-                        else (fb_acc / done).reshape(cam.height, cam.width, 3))
-        if on_launch is not None:
-            on_launch(mean, done)
-    seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fb_acc = np.zeros((n_pix, 3), np.float32)
+        rays = 0
+        spilled = 0
+        done = 0
+        while done < cfg.spp:
+            step = min(spp_per_launch, cfg.spp - done)
+            with span("render.launch"):
+                if use_cache:
+                    fb, nrays, _, stats = render_regen_cached(
+                        scene, cfg, key, n_pix, spp_per_launch, step, lanes=lanes, spp0=done,
+                        job=job,
+                    )
+                else:
+                    fb, nrays, _, stats = render_regen(
+                        scene, cfg, key, n_pix, n_pix * step, lanes=lanes, spp0=done, job=job,
+                    )
+                spilled += stats.spilled
+                with span("regen.sync"):
+                    rays += int(nrays)
+                done += step
+                with span("render.accumulate"):
+                    fb_acc += fb.cpu().numpy()
+                    mean = (None if on_launch is None
+                            else (fb_acc / done).reshape(cam.height, cam.width, 3))
+            if on_launch is not None:
+                on_launch(mean, done)
+        seconds = time.perf_counter() - t0
     if spilled:
         # Those chains fell back to the restructured estimator: surfaced.
         print(f"[regen] WARNING: {spilled} blocker chains spilled", flush=True)

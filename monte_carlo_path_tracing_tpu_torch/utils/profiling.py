@@ -65,14 +65,16 @@ class PhaseTimer:
 SPANS = {
     "render.launch": "one timed launch of render_image_regen, up to its on_launch",
     "render.accumulate": "the framebuffer's copy to the host, the add and the mean image",
-    "regen.prepass": "a primary_prepass call",
-    "regen.loop": "a render_regen call",
-    "regen.context": "the per-call build of accel, light tables, constants and state buffers",
+    "regen.prepass": "a primary_prepass call (a launch's prepass)",
+    "regen.loop": "a render_regen call (a launch's loop)",
+    "regen.context": "a job's first build of accel, light tables, constants and state buffers; "
+                     "in its later launches the state's in-place reset and the launch's "
+                     "scalar writes",
     "regen.prepass_tail": "a prepass chunk's overflow tail",
     "regen.sync": "a host read of a device value (the loop's condition, a chunk's "
                   "overflow predicate, a count)",
-    "graph.warm_up": "a captured loop's eager first step",
-    "graph.capture": "a step's capture and instantiation as a CUDA graph",
+    "graph.warm_up": "a captured loop's eager first step (once a job)",
+    "graph.capture": "a step's capture and instantiation as a CUDA graph (once a job)",
     "parallel.reduce": "a sharded launch's count all_reduce and its host reads",
 }
 

@@ -4,7 +4,8 @@ renders on the CPU: the regeneration render uncached and cached, bathroom
 with accel="auto" (K4 / K5 in the loop), the fixed-depth render_image,
 pixel_grad, recover_materials, and the sharded regeneration render at
 world size 1 on NCCL; utils.profiling.device_trace's trace of K1; the
-regeneration loop captured as a CUDA graph against the eager loop.
+regeneration loop captured as a CUDA graph against the eager loop, and a
+render_image_regen job's replayed launches against eager launches.
 
 Needs an NVIDIA GPU: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where only PyTorch is installed:
@@ -27,6 +28,7 @@ from monte_carlo_path_tracing_tpu_torch.core import rng
 from monte_carlo_path_tracing_tpu_torch.diff import grad as dgrad
 from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
 from monte_carlo_path_tracing_tpu_torch.diff.inverse import recover_materials
+from monte_carlo_path_tracing_tpu_torch.integrator import graph as graph_mod
 from monte_carlo_path_tracing_tpu_torch.integrator import regen, wavefront
 from monte_carlo_path_tracing_tpu_torch.render.camera import generate_rays
 from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image, render_image_regen
@@ -973,6 +975,64 @@ def test_captured_render_image_matches_eager(dev, estimator):
     np.testing.assert_allclose(g.image, e.image, rtol=2e-4, atol=1e-5)
     assert gl == el and gl["K1 nearest_hit"] > 8
     assert gl["K4 nearest_hit_culled"] == gl["K5 occluded_culled"] == 0
+
+
+@pytest.mark.parametrize("cached", [True, False])
+def test_job_launches_are_eager_launches_and_allocate_nothing(dev, monkeypatch, cached):
+    """One render_image_regen job (Veach 128^2, 5 spp in launches of 2, 2
+    and a short 1 after the warm-up) in torch's deterministic mode against
+    the same launches run as their own eager calls (graph=False): every
+    launch's framebuffer bit-equal, rays and iterations equal. The job
+    captures each loop once (the prepass and the loop cached, the loop
+    uncached); the caching allocator's cudaMalloc count does not grow
+    after the first timed launch (where the loop captures); and when the
+    call returns the job's memory is released."""
+    sc = _scene("veach-mis", 128).to(dev)
+    cfg = RenderConfig(width=128, height=128, spp=5, estimator="mis", max_depth=16, seed=3,
+                       primary_cache=cached)
+    n_pix, lanes = 128 * 128, 4096
+    key = rng.base_key(3, device=dev)
+    name = "render_regen_cached" if cached else "render_regen"
+    real, got, captures, allocs = getattr(regen, name), [], [], []
+
+    def launch(*a, **kw):
+        out = real(*a, **kw)
+        got.append((out[0].cpu().numpy(), int(out[1]), out[2]))
+        return out
+
+    class Counted(graph_mod.CapturedStep):
+        def __init__(self, *a, **kw):
+            captures.append(1)
+            super().__init__(*a, **kw)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = []
+        for spp0, spp in ((0, 2), (2, 2), (4, 1)):
+            if cached:
+                out = real(sc, cfg, key, n_pix, 2, spp, lanes=lanes, spp0=spp0, graph=False)
+            else:
+                out = real(sc, cfg, key, n_pix, n_pix * spp, lanes=lanes, spp0=spp0,
+                           graph=False)
+            want.append((out[0].cpu().numpy(), int(out[1]), out[2]))
+        del out
+        monkeypatch.setattr(regen, name, launch)
+        monkeypatch.setattr(graph_mod, "CapturedStep", Counted)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        render_image_regen(sc, cfg, lanes=lanes, max_samples_per_launch=2 * n_pix,
+                           on_launch=lambda img, done: allocs.append(
+                               torch.cuda.memory_stats()["num_device_alloc"]))
+        torch.cuda.synchronize()
+        end = torch.cuda.memory_allocated()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert len(got) == 4 and len(captures) == (2 if cached else 1)
+    for (gfb, grays, giters), (efb, erays, eiters) in zip(got[1:], want):
+        assert grays == erays and giters == eiters
+        assert np.array_equal(gfb, efb)
+    assert allocs == allocs[:1] * 3, allocs
+    assert end == base, (base, end)
 
 
 def _assert_same_seeds(a, b):

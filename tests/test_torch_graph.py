@@ -217,7 +217,7 @@ def test_graphed_loop_keeps_the_eager_loops_iterations(cornell_scene, monkeypatc
                                       capture=lambda g: records_nothing(state))
 
     class Loop(graph_mod.GraphedLoop):
-        def __init__(self, step, device):
+        def __init__(self, step, device, pool=None):     # a stand-in allocates no pool
             super().__init__(step, device, capture=capture)
             loops.append(self)
 

@@ -159,7 +159,9 @@ def test_forced_tail_is_exact(veach_scene, monkeypatch, tails, change):
 def test_zero_round_prepass_shades_nothing(veach_scene, counted_traces):
     """A 0-round prepass (render_image_regen's warm-up) against JAX's: no
     seed, the same ray counts and primary hits, fb_pre zero; it traces
-    each chunk's camera fan (K4) and shades no row (no K5)."""
+    each chunk's camera fan (K4) and runs the chunk any launch runs, so
+    that a job's graph captures it: its shadow batch (K5) holds only
+    masked rows and counts no ray."""
     js, ts = _pair(veach_scene, W, H)
     kw = _cfg()
     fb_pre, _, cache_tri, _, _, count, n_log, n_phys = jregen.primary_prepass(
@@ -172,7 +174,7 @@ def test_zero_round_prepass_shades_nothing(veach_scene, counted_traces):
     np.testing.assert_array_equal(seeds.cache_tri.numpy(), np.asarray(cache_tri))
     assert not seeds.fb_pre.any() and not np.asarray(fb_pre).any()
     assert c1["K4 nearest_hit_culled"] - c0["K4 nearest_hit_culled"] == 3
-    assert c1["K5 occluded_culled"] == c0["K5 occluded_culled"]
+    assert c1["K5 occluded_culled"] - c0["K5 occluded_culled"] == 3
 
 
 @pytest.fixture
@@ -233,7 +235,7 @@ def _stand_in_graphs(monkeypatch, state_of):
                                       capture=lambda g: records_nothing(state_of(step)))
 
     class Loop(graph_mod.GraphedLoop):
-        def __init__(self, step, device):
+        def __init__(self, step, device, pool=None):     # a stand-in allocates no pool
             super().__init__(step, device, capture=capture)
             loops.append(self)
 

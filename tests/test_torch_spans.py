@@ -8,7 +8,9 @@
   ``render.launch`` ranges, each holding ``regen.prepass``, ``regen.loop``,
   the two reads of the rays and ``render.accumulate`` in that order, the prepass and
   the loop each with its ``regen.context``; every two spans are disjoint
-  or nested.
+  or nested. On the stand-in graphs the job warms up and captures each
+  loop once: the prepass's warm-up in the warm-up launch, its capture and
+  the loop's warm-up and capture in the first launch, none in the second.
 - ``regen.sync`` counts the host reads: one a loop condition (iterations
   + 1), one a prepass chunk whose prefix is below its rows, and the fixed
   reads (the prepass's counts, the cached route's ray count), the same on
@@ -106,7 +108,8 @@ def test_image_is_bit_equal_with_and_without_a_profiler(scene):
     assert plain.rays_traced == traced.rays_traced
 
 
-def test_two_launches_nest_their_spans_in_order(scene):
+def test_two_launches_nest_their_spans_in_order(scene, monkeypatch):
+    _stand_in_graphs(monkeypatch, _state_of)
     _, spans = _spans(lambda: render_image_regen(scene, _cfg(), lanes=LANES,
                                                  max_samples_per_launch=W * H))
     launches = [s for s in spans if s[2] == "render.launch"]
@@ -121,6 +124,11 @@ def test_two_launches_nest_their_spans_in_order(scene):
     # The warm-up launch's prepass and loop lie before the first launch.
     assert [s[2] for s in spans if s[1] <= launches[0][0]
             and s[2] in ("regen.prepass", "regen.loop")] == ["regen.prepass", "regen.loop"]
+    # One job: its graphs warm up and capture in its first launches only.
+    where = [(sum(lau[0] <= g[0] for lau in launches) - 1, g[2]) for g in spans
+             if g[2].startswith("graph.")]
+    assert where == [(-1, "graph.warm_up"), (0, "graph.capture"), (0, "graph.warm_up"),
+                     (0, "graph.capture")]
     for i, a in enumerate(spans):
         for b in spans[i + 1:]:
             assert b[0] >= a[1] or b[1] <= a[1], f"{a} and {b} overlap out of order"
@@ -178,12 +186,13 @@ def test_sync_spans_count_the_host_reads(scene, route):
     assert _syncs(spans) == syncs == _syncs(spans2)
 
 
+def _state_of(step):
+    return step.args[0] if isinstance(step, functools.partial) else step.__self__.state
+
+
 @pytest.mark.parametrize("route", ["uncached", "prepass"])
 def test_each_graphed_loop_gives_one_warm_up_and_one_capture(scene, monkeypatch, route):
-    def state_of(step):
-        return step.args[0] if isinstance(step, functools.partial) else step.__self__.state
-
-    loops = _stand_in_graphs(monkeypatch, state_of)
+    loops = _stand_in_graphs(monkeypatch, _state_of)
     cfg = _cfg(spp=4)
     out, spans = _spans(_route(scene, cfg, route, graph=True))
     (loop,) = loops
