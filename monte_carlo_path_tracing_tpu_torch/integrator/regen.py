@@ -33,10 +33,12 @@ and launch splitting, and consumes the same streams as the JAX package.
   default route whenever :func:`primary_cache_eligible` holds.
 - :class:`RegenJob`: what a job keeps from launch to launch. Each of the
   calls above renders one launch of a job: ``render_image_regen`` passes
-  one job to all its launches (``job=``), so that the scene context, the
-  state buffers and the captured steps are built and captured once and
-  every later launch rewrites the state in place and replays; any other
-  call is a job of one launch.
+  one job to all its launches (``job=``), and the renderer of
+  ``parallel.sharded.make_regen_sharded`` one job a rank to all its
+  calls, so that the scene context, the state buffers and the captured
+  steps are built and captured once and every later launch rewrites the
+  state in place (its key too) and replays; any other call is a job of
+  one launch.
 
 Estimators: Veach MIS, split and BRDF-only, with the spherical-triangle or
 the uniform-area light sampler. ``ref_mis_weights`` adds the reference's
@@ -53,7 +55,8 @@ Spans (``utils.profiling.span``, recorded only under a torch profiler):
 ``regen.prepass`` and ``regen.loop`` cover a :func:`primary_prepass` and
 a :func:`render_regen` call, ``regen.context`` in each the job's first
 build of accel, light tables, constants and state buffers, or in a later
-launch the in-place reset of that state and the launch's scalar writes,
+launch the copy of its key, the in-place reset of that state and the
+launch's scalar writes,
 ``regen.prepass_tail`` an overflow tail, and ``regen.sync`` each host
 read of a device value: the loop's condition, a chunk's overflow
 predicate and the counts.
@@ -355,7 +358,9 @@ class PrepassLoop:
 
     def reset(self, spp0: int, spp_rounds: int) -> None:
         """A launch's start: the counts and the chunk index zeroed, its
-        rounds (clamped to spp_cap) and round keys written. Every other
+        rounds (clamped to spp_cap) and round keys written, the latter from
+        the key as it is now (a job's key buffer, which each launch
+        rewrites). Every other
         buffer is written before it is read: ``fb_pre`` and the cache row
         by row by the chunks, the seeds up to the count."""
         st = self.state
@@ -529,11 +534,11 @@ def primary_prepass(
     job = RegenJob() if job is None else job
     with span("regen.prepass"):
         with span("regen.context"):
+            key = job.key(base_key, scene.device)
             loop = job.part(
                 "prepass",
-                (id(scene), cfg, id(base_key), n_pix, spp_cap, pixel_offset, pixel_stride,
-                 pix_chunk),
-                lambda: PrepassLoop(scene, cfg, base_key, n_pix, spp_cap, spp_rounds,
+                (id(scene), cfg, n_pix, spp_cap, pixel_offset, pixel_stride, pix_chunk),
+                lambda: PrepassLoop(scene, cfg, key, n_pix, spp_cap, spp_rounds,
                                     pixel_offset=pixel_offset, pixel_stride=pixel_stride,
                                     spp0=spp0, pix_chunk=pix_chunk,
                                     ctx=job.context(scene, cfg)))
@@ -610,7 +615,9 @@ def regen_loop(
 
     The launch's own values are device scalars of ``state`` that
     ``iterate`` reads: ``spp0``, ``total`` (``total_samples``) and, with
-    the blocker queue, ``chain_base`` (:func:`chain_key`)."""
+    the blocker queue, ``chain_base`` (:func:`chain_key`). ``base_key``
+    (on the scene's device) is read in place, by ``iterate`` and by the
+    reset: a job builds the loop on its key buffer (:meth:`RegenJob.key`)."""
     state, iterate, more, reset = _loop(scene, cfg, base_key, n_pix, lanes, pixel_offset,
                                         pixel_stride, seed_mode, scene_context(scene, cfg))
     reset(spp0, total_samples)
@@ -922,8 +929,8 @@ def render_regen(
     ``job``: the :class:`RegenJob` this call is a launch of (None: a job of
     this one launch). Its first launch builds the loop's state and its
     graph; a later one resets the state in place and replays. Its calls
-    keep every argument but ``spp0`` and ``total_samples``, and the
-    cached route's seeds are its prepass's.
+    keep every argument but ``base_key``, ``spp0`` and ``total_samples``,
+    and the cached route's seeds are its prepass's.
 
     ``on_iter(state)``, when given, sees the loop state (the dict of
     :func:`regen_loop`) before the first iteration and after each one. Its
@@ -936,11 +943,11 @@ def render_regen(
     job = RegenJob() if job is None else job
     with span("regen.loop"):
         with span("regen.context"):
+            key = job.key(base_key, scene.device)
             st, iterate, more, reset = job.part(
                 "loop",
-                (id(scene), cfg, id(base_key), n_pix, lanes, pixel_offset, pixel_stride,
-                 id(seed_mode)),
-                lambda: _loop(scene, cfg, base_key, n_pix, lanes, pixel_offset, pixel_stride,
+                (id(scene), cfg, n_pix, lanes, pixel_offset, pixel_stride, id(seed_mode)),
+                lambda: _loop(scene, cfg, key, n_pix, lanes, pixel_offset, pixel_stride,
                               seed_mode, job.context(scene, cfg)))
             reset(spp0, total_samples)
         step = job.step("loop", functools.partial(iterate, st), graph, scene.device)
@@ -961,23 +968,28 @@ def render_regen(
 
 class RegenJob:
     """What a job keeps from launch to launch, built at its first launch:
-    the scene context (:class:`SceneContext`), the prepass's and the
-    loop's state (:class:`PrepassLoop`, :func:`regen_loop`) and their
-    captured steps (one ``graph.GraphedLoop`` each, in one memory pool).
+    the key buffer, the scene context (:class:`SceneContext`), the
+    prepass's and the loop's state (:class:`PrepassLoop`,
+    :func:`regen_loop`) and their captured steps (one
+    ``graph.GraphedLoop`` each, in one memory pool).
 
     ``render_image_regen`` makes one for its call and passes it to every
     launch (``job=`` of :func:`render_regen_cached` / :func:`render_regen`);
-    any other call makes its own for its one launch. A later launch
-    rewrites the state in place and writes its ``spp0``, rounds and samples
-    into device scalars that the captured steps read, so it builds,
-    warms up, captures and allocates nothing, and each step is one replay.
-    A launch that changes an argument its part was built from (scene,
-    configuration, key, sizes) raises. :meth:`close` (or the end of a
-    ``with`` block) frees it all; nothing is kept across jobs."""
+    the renderer of ``parallel.sharded.make_regen_sharded`` keeps one for
+    its lifetime; any other call makes its own for its one launch. A later
+    launch copies its key into the key buffer (:meth:`key`), rewrites the
+    state in place and writes its ``spp0``, rounds and samples into device
+    scalars that the captured steps read, so it builds, warms up, captures
+    and allocates nothing, and each step is one replay. A launch may bring
+    a new key; one that changes an argument its part was built from
+    (scene, configuration, sizes, lanes, pixel offset or stride) raises.
+    :meth:`close` (or the end of a ``with`` block) frees it all; nothing
+    is kept across jobs."""
 
     def __init__(self):
         self.parts: dict = {}       # name -> (the arguments it was built from, the part)
         self.pool = None
+        self.key_buf: torch.Tensor | None = None
 
     def __enter__(self) -> RegenJob:
         return self
@@ -988,6 +1000,17 @@ class RegenJob:
     def close(self) -> None:
         self.parts.clear()
         self.pool = None
+        self.key_buf = None
+
+    def key(self, base_key: torch.Tensor, device: torch.device) -> torch.Tensor:
+        """The job's key buffer on ``device`` with ``base_key`` copied into
+        it: allocated at the job's first launch with the key's shape and
+        dtype, and read by every part built on it (the captured steps and
+        the eager resets), so that each launch renders its own key."""
+        if self.key_buf is None:
+            self.key_buf = torch.empty_like(base_key, device=device)
+        self.key_buf.copy_(base_key)
+        return self.key_buf
 
     def part(self, name: str, fixed: tuple, build: Callable[[], object]):
         """The part ``name``, ``build()`` at its first call; raises where

@@ -29,6 +29,8 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 from torch.distributed.tensor import Replicate, Shard
 
+from monte_carlo_path_tracing_tpu_torch.utils.profiling import span
+
 AXIS_TILES = "tiles"
 AXIS_SPP = "spp"
 
@@ -105,10 +107,12 @@ def gather_rows(x: torch.Tensor, mesh: Mesh, axis: str = AXIS_TILES) -> torch.Te
     """The all-gather back of :func:`shard_rows`: the blocks of every rank
     along ``axis``, concatenated in axis order, on every rank. It stands in
     for reading a JAX array sharded by ``ray_sharding`` (or moving it to
-    ``replicated``). Not differentiable."""
-    parts = [torch.empty_like(x) for _ in range(axis_size(mesh, axis))]
-    dist.all_gather(parts, x.contiguous(), group=mesh.get_group(axis))
-    return torch.cat(parts)
+    ``replicated``). Not differentiable. Under a profiler the call is a
+    ``parallel.gather`` span."""
+    with span("parallel.gather"):
+        parts = [torch.empty_like(x) for _ in range(axis_size(mesh, axis))]
+        dist.all_gather(parts, x.contiguous(), group=mesh.get_group(axis))
+        return torch.cat(parts)
 
 
 def _slurm_first_host(nodelist: str) -> str:

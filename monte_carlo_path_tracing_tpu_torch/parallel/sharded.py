@@ -13,7 +13,9 @@ renders.
 - :func:`make_regen_sharded` / :func:`render_regen_sharded`: each rank runs
   the path-regeneration loop (cached or not) over an interleaved pixel
   subset; streams are keyed by global (spp round, pixel id), so the image
-  does not depend on the rank count.
+  does not depend on the rank count. The renderer that
+  :func:`make_regen_sharded` returns is one ``RegenJob`` a rank, so its
+  calls after the first replay what the first captured.
 - :func:`make_train_step`: rays split over ``tiles``, sample streams over
   ``spp``; the material gradient is all-reduced over every mesh axis, so
   every rank leaves the step with the same materials.
@@ -59,6 +61,28 @@ def render_rays_sharded(
     return gather_rows(rad, mesh)
 
 
+class ShardedRegen:
+    """The renderer :func:`make_regen_sharded` returns: this rank's one
+    ``integrator.regen.RegenJob`` for as long as it lives, and ``render``,
+    which renders a launch of it. ``close()`` (or the end of a ``with``
+    block) frees the job."""
+
+    def __init__(self, render, job):
+        self._render, self.job = render, job
+
+    def __call__(self, scene: Scene, key: torch.Tensor, spp: int):
+        return self._render(scene, key, spp)
+
+    def close(self) -> None:
+        self.job.close()
+
+    def __enter__(self) -> ShardedRegen:
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 def make_regen_sharded(
     scene_like: Scene,
     cfg: RenderConfig,
@@ -66,7 +90,7 @@ def make_regen_sharded(
     lanes_per_device: int = 1 << 16,
     spp_cap: int | None = None,
     with_physical: bool = False,
-):
+) -> ShardedRegen:
     """A sharded path-regeneration renderer
         fn(scene, key, samples_per_pixel) -> (framebuffer_sum [n_pix / ranks, 3],
                                                rays_traced)
@@ -82,9 +106,20 @@ def make_regen_sharded(
     prepass over its pixel subset, then the seeded loop. Raises, as JAX's
     does, when nd does not divide the pixel count or when the cache is
     taken and ``cfg.spp`` exceeds ``spp_cap``. ``with_physical=True``
-    returns a third output, the summed physically traced ray count."""
+    returns a third output, the summed physically traced ray count.
+
+    The renderer (:class:`ShardedRegen`) is one job a rank
+    (``integrator.regen.RegenJob``). Its first call builds the scene
+    context and the state buffers; on the card the job's first prepass
+    chunk and first loop iteration run eagerly and its second of each is
+    captured. Once both are captured, a call copies its key into the job,
+    resets the state in place and replays, with no build, capture or
+    device allocation. Each call may bring its own key and
+    ``samples_per_pixel`` (at most ``spp_cap`` cached) and keeps the
+    scene. The shard it returns is a view of the job's buffer,
+    which the next call overwrites. ``close()`` frees the job."""
     from monte_carlo_path_tracing_tpu_torch.integrator.regen import (
-        primary_cache_eligible, render_regen, render_regen_cached,
+        RegenJob, primary_cache_eligible, render_regen, render_regen_cached,
     )
 
     cam = scene_like.camera
@@ -105,18 +140,19 @@ def make_regen_sharded(
         )
     d = axis_index(mesh, AXIS_TILES)
     group = mesh.get_group(AXIS_TILES)
+    job = RegenJob()
 
-    def fn(sc: Scene, key: torch.Tensor, spp: int):
+    def render(sc: Scene, key: torch.Tensor, spp: int):
         if use_cache:
             fb, nrays, _, stats = render_regen_cached(
                 sc, cfg, key, local, spp_cap, spp, lanes=lanes_per_device,
-                pixel_offset=d, pixel_stride=nd,
+                pixel_offset=d, pixel_stride=nd, job=job,
             )
             nphys = stats.rays_physical
         else:
             fb, nrays, _, _ = render_regen(
                 sc, cfg, key, local, local * spp, lanes=lanes_per_device,
-                pixel_offset=d, pixel_stride=nd,
+                pixel_offset=d, pixel_stride=nd, job=job,
             )
             nphys = nrays
         # Under a profiler, the span is this rank's wait for the slowest.
@@ -129,7 +165,7 @@ def make_regen_sharded(
                 out += (int(counts[1]),)
         return out
 
-    return fn
+    return ShardedRegen(render, job)
 
 
 def deinterleave_framebuffer(fb, n_devices: int):
@@ -149,12 +185,12 @@ def render_regen_sharded(
     lanes_per_device: int = 1 << 16,
     spp_cap: int | None = None,
 ):
-    """One-shot :func:`make_regen_sharded` at ``cfg.spp``: (framebuffer_sum
-    [n_pix, 3] in global pixel order as a host array, on every rank;
-    rays_traced)."""
-    fn = make_regen_sharded(scene, cfg, mesh, lanes_per_device, spp_cap)
-    fb, nrays = fn(scene, key, cfg.spp)
-    fb = gather_rows(fb, mesh).cpu().numpy()
+    """One-shot :func:`make_regen_sharded` at ``cfg.spp``, a job of one
+    launch: (framebuffer_sum [n_pix, 3] in global pixel order as a host
+    array, on every rank; rays_traced)."""
+    with make_regen_sharded(scene, cfg, mesh, lanes_per_device, spp_cap) as fn:
+        fb, nrays = fn(scene, key, cfg.spp)
+        fb = gather_rows(fb, mesh).cpu().numpy()
     return deinterleave_framebuffer(fb, axis_size(mesh, AXIS_TILES)), nrays
 
 

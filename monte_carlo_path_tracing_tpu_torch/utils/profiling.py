@@ -68,14 +68,15 @@ SPANS = {
     "regen.prepass": "a primary_prepass call (a launch's prepass)",
     "regen.loop": "a render_regen call (a launch's loop)",
     "regen.context": "a job's first build of accel, light tables, constants and state buffers; "
-                     "in its later launches the state's in-place reset and the launch's "
-                     "scalar writes",
+                     "in its later launches the key's copy, the state's in-place reset and "
+                     "the launch's scalar writes",
     "regen.prepass_tail": "a prepass chunk's overflow tail",
     "regen.sync": "a host read of a device value (the loop's condition, a chunk's "
                   "overflow predicate, a count)",
     "graph.warm_up": "a captured loop's eager first step (once a job)",
     "graph.capture": "a step's capture and instantiation as a CUDA graph (once a job)",
     "parallel.reduce": "a sharded launch's count all_reduce and its host reads",
+    "parallel.gather": "a gather_rows call: the all_gather of every rank's rows",
 }
 
 _NO_SPAN = contextlib.nullcontext()

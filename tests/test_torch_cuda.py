@@ -3,7 +3,8 @@ also against K1 / K2), and the port's renders on the card against the same
 renders on the CPU: the regeneration render uncached and cached, bathroom
 with accel="auto" (K4 / K5 in the loop), the fixed-depth render_image,
 pixel_grad, recover_materials, and the sharded regeneration render at
-world size 1 on NCCL; utils.profiling.device_trace's trace of K1; the
+world size 1 on NCCL (one-shot, and a renderer's job across launches);
+utils.profiling.device_trace's trace of K1; the
 regeneration loop captured as a CUDA graph against the eager loop, and a
 render_image_regen job's replayed launches against eager launches.
 
@@ -638,6 +639,66 @@ def test_render_regen_sharded_world_size_1_matches_unsharded(dev, monkeypatch):
     want = render_image_regen(sc, cfg, lanes=512)
     np.testing.assert_allclose(fb.reshape(24, 24, 3) / cfg.spp, want.image, rtol=1e-5, atol=1e-6)
     assert rays == want.rays_traced
+
+
+def test_sharded_renderer_replays_its_job_and_allocates_nothing(dev, monkeypatch):
+    """make_regen_sharded's renderer at world size 1 on NCCL (Veach 128^2,
+    cached, spp_cap 2, 4,096 lanes) in torch's deterministic mode: a 0-spp
+    warm-up, then four launches of 2, 1, 2 and 2 spp, each keyed fold(base(3),
+    i). Its one job captures the prepass chunk and the loop iteration once,
+    both by the end of the first timed launch; after that launch the
+    caching allocator's cudaMalloc count stays flat and nothing is
+    captured; each launch's gathered shard is bit-equal, with the same ray
+    count, to a fresh renderer's one call with its key."""
+    import socket
+
+    import torch.distributed as dist
+
+    from monte_carlo_path_tracing_tpu_torch.parallel import gather_rows, make_mesh
+    from monte_carlo_path_tracing_tpu_torch.parallel.mesh import init_distributed_if_needed
+    from monte_carlo_path_tracing_tpu_torch.parallel.sharded import make_regen_sharded
+
+    sc = _scene("veach-mis", 128).to(dev)
+    cfg = RenderConfig(width=128, height=128, spp=2, estimator="mis", max_depth=16, seed=3)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0",
+                     LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    spps = (2, 1, 2, 2)
+    captures, got, want, seen = [], [], [], []
+
+    class Counted(graph_mod.CapturedStep):
+        def __init__(self, *a, **kw):
+            captures.append(1)
+            super().__init__(*a, **kw)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        init_distributed_if_needed(timeout_s=120)
+        mesh = make_mesh((1,))
+        keys = [rng.fold_in(rng.base_key(3, device=dev), i) for i in range(len(spps))]
+        for k, spp in zip(keys, spps):
+            with make_regen_sharded(sc, cfg, mesh, 4096, spp_cap=2) as one:
+                fb, n = one(sc, k, spp)
+                want.append((gather_rows(fb, mesh).cpu().numpy(), n))
+        monkeypatch.setattr(graph_mod, "CapturedStep", Counted)
+        with make_regen_sharded(sc, cfg, mesh, 4096, spp_cap=2) as fn:
+            fn(sc, keys[0], 0)
+            for k, spp in zip(keys, spps):
+                fb, n = fn(sc, k, spp)
+                got.append((gather_rows(fb, mesh).cpu().numpy(), n))
+                seen.append((len(captures), torch.cuda.memory_stats()["num_device_alloc"]))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    assert seen == seen[:1] * len(spps) and seen[0][0] == 2, seen
+    for i, ((g, gn), (w, wn)) in enumerate(zip(got, want)):
+        assert gn == wn and np.array_equal(g, w), i
+    assert not np.array_equal(got[0][0], got[2][0])
 
 
 @pytest.mark.parametrize("estimator", ["mis", "split", "brdf"])

@@ -6,10 +6,12 @@ The port runs one process per device. Its ranks here are subprocesses
 torchrun-style variables on a free port, each on one torch thread, with a
 timeout on the rendezvous, on every collective and on every join. One
 4-rank launch runs the sharded fixed-depth render, the sharded regen
-render (uncached and cached) and the train step; every rank writes its
-results, which the tests hold against JAX's ``parallel/`` on 4 of the 8
-virtual CPU devices that ``tests/conftest.py`` makes, and against the
-port's single-device renders.
+render (uncached and cached), the sharded renderer as one job across
+launches and the train step; every rank writes its results, which the
+tests hold against JAX's ``parallel/`` on 4 of the 8 virtual CPU devices
+that ``tests/conftest.py`` makes, against the port's single-device
+renders, and (the job's launches) against one-launch renderers and the
+benchmark's plain reference (``benchmark/reference/``).
 
 Tolerances are JAX's own (``tests/test_parallel.py``,
 ``tests/test_primary_cache.py``) where the port is held against itself:
@@ -49,6 +51,10 @@ RAYS = dict(spp=1, estimator="mis", max_depth=4, seed=3)
 REGEN = dict(width=16, height=16, spp=16, estimator="mis", max_depth=6, seed=2)
 CACHED = dict(width=24, height=16, spp=3, estimator="mis", light_sampler="spherical_triangle",
               max_depth=16, seed=7, primary_cache=True)
+#: The sharded renderer's job: the four-card configuration's scene (Veach
+#: MIS), cached, and the spp of its launches after a 0-spp warm-up.
+JOB = dict(CACHED, width=16, height=16)
+JOB_SPP = [3, 1, 2]
 TRAIN = dict(spp=1, estimator="brdf", max_depth=3, seed=1)
 FIELDS = ("kd", "ks", "ns", "emission")
 
@@ -69,8 +75,10 @@ from monte_carlo_path_tracing_tpu_torch.core import rng
 from monte_carlo_path_tracing_tpu_torch.parallel import (
     make_mesh, make_train_step, ray_sharding, render_rays_sharded, replicated,
 )
+from monte_carlo_path_tracing_tpu_torch.integrator import regen
+from monte_carlo_path_tracing_tpu_torch.parallel.mesh import gather_rows
 from monte_carlo_path_tracing_tpu_torch.parallel.sharded import (
-    make_regen_sharded, render_regen_sharded,
+    deinterleave_framebuffer, make_regen_sharded, render_regen_sharded,
 )
 from monte_carlo_path_tracing_tpu_torch.scene import load_scene
 from monte_carlo_path_tracing_tpu_torch.scene.types import Materials
@@ -121,6 +129,34 @@ for job in jobs:
         _, n2, phys = fn(res(24, 16), rng.base_key(cfg.seed), cfg.spp)
         assert n2 == n
         out["cached_fb"], out["cached_rays"], out["cached_phys"] = fb, n, phys
+    elif job == "job":
+        # One renderer: a 0-spp warm-up, then a launch a key folded from the
+        # seed; then each key again through a renderer of its own.
+        cfg = RenderConfig(**cfgs["job"])
+        mesh = make_mesh((world,), ("tiles",))
+        sc = load_scene(os.path.join(os.environ["MCPT_REPO"], "scenes", "veach-mis",
+                                     "veach-mis.obj"), device="cpu")
+        sc = dataclasses.replace(sc, camera=dataclasses.replace(sc.camera, width=cfg.width,
+                                                                height=cfg.height))
+        keys = [rng.fold_in(rng.base_key(cfg.seed), i) for i in range(len(cfgs["job_spp"]))]
+        shards = lambda fb: deinterleave_framebuffer(gather_rows(fb, mesh).numpy(), world)
+        real, made = regen.scene_context, []
+        regen.scene_context = lambda *a: made.append(1) or real(*a)
+        with make_regen_sharded(sc, cfg, mesh, 64, spp_cap=cfg.spp) as fn:
+            fn(sc, keys[0], 0)
+            parts = {name: part for name, (_, part) in fn.job.parts.items()}
+            assert set(parts) == {"context", "prepass", "loop"}
+            for i, (k, spp) in enumerate(zip(keys, cfgs["job_spp"])):
+                fb, n = fn(sc, k, spp)
+                out[f"job_fb_{i}"], out[f"job_rays_{i}"] = shards(fb), n
+                assert {name: part for name, (_, part) in fn.job.parts.items()} == parts
+        assert not fn.job.parts
+        regen.scene_context = real
+        out["job_contexts"] = len(made)
+        for i, (k, spp) in enumerate(zip(keys, cfgs["job_spp"])):
+            with make_regen_sharded(sc, cfg, mesh, 64, spp_cap=cfg.spp) as one:
+                fb, n = one(sc, k, spp)
+                out[f"one_fb_{i}"], out[f"one_rays_{i}"] = shards(fb), n
     elif job == "raises":
         mesh = make_mesh((world,), ("tiles",))
         cases = [(res(15, 15), RenderConfig(width=15, height=15, spp=2), None),
@@ -177,7 +213,8 @@ def launch(world: int, jobs, out_dir, inputs: dict) -> list:
     env = {k: v for k, v in os.environ.items() if not k.startswith(("SLURM_", "XLA_"))}
     env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world),
                MCPT_REPO=REPO, MCPT_TIMEOUT=str(RENDEZVOUS_S), OMP_NUM_THREADS="1",
-               MCPT_CFGS=json.dumps(dict(rays=RAYS, regen=REGEN, cached=CACHED, train=TRAIN)))
+               MCPT_CFGS=json.dumps(dict(rays=RAYS, regen=REGEN, cached=CACHED, train=TRAIN,
+                                         job=JOB, job_spp=JOB_SPP)))
     procs = [subprocess.Popen([sys.executable, worker, str(out_dir), *jobs],
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -232,8 +269,8 @@ def inputs(cornell_scene):
 @pytest.fixture(scope="module")
 def ranks4(inputs, tmp_path_factory):
     """One 4-rank launch of every sharded path."""
-    return launch(4, ["rays", "regen", "cached", "train"], tmp_path_factory.mktemp("ranks4"),
-                  inputs)
+    return launch(4, ["rays", "regen", "cached", "job", "train"],
+                  tmp_path_factory.mktemp("ranks4"), inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +427,61 @@ def test_sharded_cached_matches_unsharded_and_jax(ranks4, cornell_scene):
                            jax.random.key(CACHED["seed"]), mesh, lanes_per_device=64,
                            spp_cap=CACHED["spp"])
     _regen_fringe(img, np.asarray(jfb).reshape(16, 24, 3) / CACHED["spp"], rays, int(jrays))
+
+
+def test_sharded_renderer_is_one_job_across_launches(ranks4):
+    """One make_regen_sharded renderer on 4 ranks (Veach MIS 16^2, cached,
+    spp_cap 3, 64 lanes a rank): after a 0-spp warm-up, three launches of
+    3, 1 and 2 spp, each keyed fold(base(7), i). Every rank holds the same
+    gathered image; each launch is bit-equal, with the same ray count, to a
+    fresh renderer's one call with its key (the same ranks sum in the same
+    order); the keys give other images; the job built its scene context
+    and parts once, and freed them when its ``with`` block ended."""
+    r0 = ranks4[0]
+    for r in ranks4:
+        assert int(r["job_contexts"]) == 1
+    for i in range(len(JOB_SPP)):
+        img = r0[f"job_fb_{i}"]
+        assert np.isfinite(img).all() and img.sum() > 0
+        assert all(np.array_equal(r[f"job_fb_{i}"], img) for r in ranks4[1:])
+        assert np.array_equal(img, r0[f"one_fb_{i}"]), i
+        assert int(r0[f"job_rays_{i}"]) == int(r0[f"one_rays_{i}"]) > 0
+    assert not np.array_equal(r0["job_fb_0"] / JOB_SPP[0], r0["job_fb_2"] / JOB_SPP[2])
+
+
+def test_sharded_renderer_launches_match_the_plain_reference(ranks4):
+    """The job's three launches summed, on every pixel, against the
+    benchmark's plain reference (``benchmark/reference/tracer.py``: plain
+    PyTorch float32, nothing of the port) over the same rounds, each round
+    keyed fold(fold(base(7), launch), spp index) as the four-card cell's
+    launches are. The limits are the four-card configuration's own
+    (``benchmark/configs/veach-mis-2048-4chip.json``, ``check.limits``), the
+    ones that decide its ``correct`` on the card, set in PERF.md §2 between
+    the sound runs' readings and the bfloat16 control's:
+
+    - ``pixels_off_share`` 0.05: a pixel is off past 1e-2 of its L1; the
+      two trace the same paths from the same streams, so only a path whose
+      discrete decision flips on rounding can move a pixel;
+    - ``sum_gap`` 0.002: the image sum, which such a flip moves by one
+      path's radiance;
+    - ``rays_per_path_gap`` 0.009: the logical rays a path, which a flip
+      moves by a few rays; here both count every pixel."""
+    from benchmark import check
+
+    r0 = ranks4[0]
+    n_pix = JOB["width"] * JOB["height"]
+    rounds = [(i, s) for i, spp in enumerate(JOB_SPP) for s in range(spp)]
+    prog = sum(r0[f"job_fb_{i}"].astype(np.float64) for i in range(len(JOB_SPP)))
+    rays = sum(int(r0[f"job_rays_{i}"]) for i in range(len(JOB_SPP)))
+    conf = {"scene": "scenes/veach-mis/veach-mis.obj", "width": JOB["width"],
+            "height": JOB["height"], "rr_prob": RenderConfig(**JOB).rr_prob}
+    ref, ref_rays = check.reference(conf, REPO, JOB["seed"], rounds, np.arange(n_pix), "cpu")
+    got = check.compare(prog, ref, rays / (n_pix * len(rounds)), ref_rays / (n_pix * len(rounds)))
+    with open(os.path.join(REPO, "benchmark", "configs", "veach-mis-2048-4chip.json")) as f:
+        limits = json.load(f)["check"]["limits"]
+    assert set(limits) == set(got)
+    for k, limit in limits.items():
+        assert got[k] <= limit, (k, got)
 
 
 def test_train_step_matches_jax_and_descends(ranks4, inputs, cornell_scene):

@@ -13,8 +13,15 @@ state, would replay the first launch's value and show here).
   context is built once. Every launch's framebuffer, logical rays and
   iterations are those of the same launch run as its own eager call
   (``graph=False``) bit for bit, and so are the image and the rays.
-- A launch that changes an argument its part was built from raises, and
-  the job frees its parts when its ``with`` block ends.
+- A job takes a new key at every launch (the sharded renderer's launches,
+  each keyed by its index): three launches of three keys folded from one
+  seed, cached and uncached, are each bit-equal to a one-launch job of
+  their own key, and the job builds its context, parts and key buffer
+  once; the stand-in replays read the key buffer, which each launch
+  rewrites.
+- A launch that changes an argument its part was built from (here the
+  lanes) raises, a new key gives that key's image, and the job frees its
+  parts and key buffer when its ``with`` block ends.
 The card runs a job against eager launches (tests/test_torch_cuda.py)."""
 
 import dataclasses
@@ -116,15 +123,44 @@ def test_job_replays_its_launches_as_eager_launches(scene, monkeypatch, cached):
             assert r1 - r0 == c1 - c0 > 0
 
 
+@pytest.mark.parametrize("cached", [True, False])
+def test_a_job_takes_a_new_key_at_every_launch(scene, monkeypatch, cached):
+    cfg = _cfg(cached)
+    keys = [rng.fold_in(rng.base_key(cfg.seed), i) for i in range(3)]
+    want = [_launch(scene, cfg, cached, 0, 2, key=k, graph=False) for k in keys]
+    for a, b in zip(want, want[1:]):
+        assert not torch.equal(a[0], b[0])           # the keys give other images
+
+    loops = _stand_in_graphs(monkeypatch, _state_of)
+    real_context, made = regen.scene_context, []
+    monkeypatch.setattr(regen, "scene_context", lambda *a: made.append(1) or real_context(*a))
+    with regen.RegenJob() as job:
+        for i, (k, w) in enumerate(zip(keys, want)):
+            fb, rays, iters, _ = _launch(scene, cfg, cached, 0, 2, key=k, job=job)
+            assert torch.equal(fb, w[0]), i
+            assert int(rays) == int(w[1]) and iters == w[2], i
+            if i == 0:
+                parts = {name: part for name, (_, part) in job.parts.items()}
+                key_buf = job.key_buf
+            assert {name: part for name, (_, part) in job.parts.items()} == parts
+            assert job.key_buf is key_buf and torch.equal(key_buf, k)
+    assert len(made) == 1 and len(loops) == (2 if cached else 1)
+    for lp in loops:
+        assert lp.captured is not None and lp.captured.graph.replays == lp.calls - 1
+
+
 def test_a_job_keeps_its_launches_arguments(scene):
     cfg = _cfg(False)
     key = rng.base_key(cfg.seed)
+    new = rng.fold_in(key, 1)
     with regen.RegenJob() as job:
         _launch(scene, cfg, False, 0, 1, key=key, job=job)
         _launch(scene, cfg, False, 1, 1, key=key, job=job)
         with pytest.raises(ValueError, match="changed what its loop was built from"):
             regen.render_regen(scene, cfg, key, N_PIX, N_PIX, lanes=2 * LANES, job=job)
-        with pytest.raises(ValueError, match="changed what its loop was built from"):
-            _launch(scene, cfg, False, 0, 1, key=rng.base_key(cfg.seed), job=job)
+        fb, rays, _, _ = _launch(scene, cfg, False, 0, 1, key=new, job=job)
+        want = _launch(scene, cfg, False, 0, 1, key=new)
+        assert torch.equal(fb, want[0]) and int(rays) == int(want[1])
+        assert not torch.equal(fb, _launch(scene, cfg, False, 0, 1, key=key)[0])
         assert set(job.parts) == {"context", "loop"}
-    assert not job.parts
+    assert not job.parts and job.key_buf is None

@@ -19,6 +19,10 @@
   ``GraphedLoop`` gives one ``graph.warm_up`` and one ``graph.capture``,
   and a replay gives no span.
 - ``device_trace``'s Chrome trace holds the span names.
+- ``parallel.mesh.gather_rows`` (a gloo group of one rank) is one
+  ``parallel.gather`` span a call, and none without a profiler; the
+  benchmark's ``allgather_ms`` reads those spans a launch, and nothing
+  from a program that emits spans but not this one.
 The benchmark's readers of these spans: benchmark/tests/test_spans.py."""
 
 import dataclasses
@@ -212,3 +216,55 @@ def test_device_trace_holds_the_span_names(scene, tmp_path):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"render.launch", "render.accumulate", "regen.prepass", "regen.loop",
             "regen.context", "regen.sync"} <= names
+
+
+@pytest.fixture
+def mesh1(tmp_path):
+    """A gloo group of this one process and its (1,) tiles mesh; the group
+    is destroyed after the test, so no other test sees it."""
+    import torch.distributed as dist
+
+    from monte_carlo_path_tracing_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        yield make_mesh((1,), ("tiles",))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gather_rows_is_one_parallel_gather_span_a_call(mesh1, monkeypatch):
+    from monte_carlo_path_tracing_tpu_torch.parallel import gather_rows
+
+    x = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    outs, spans = _spans(lambda: [gather_rows(x + i, mesh1) for i in range(3)])
+    assert [s[2] for s in spans] == ["parallel.gather"] * 3
+    assert all(torch.equal(o, x + i) for i, o in enumerate(outs))
+
+    def boom(*a, **kw):
+        raise AssertionError(f"a record function {a} without a profiler")
+
+    monkeypatch.setattr(torch._C._profiler, "_RecordFunctionFast", boom)
+    assert torch.equal(gather_rows(x, mesh1), x)
+
+
+def test_allgather_ms_reads_parallel_gather_spans():
+    from benchmark import harness, trace
+
+    def window(*hosts, launches=2):
+        out = []
+        for host in hosts:
+            names, s, e = zip(*host)
+            h = trace.Intervals(list(names), np.asarray(s, float), np.asarray(e, float))
+            dev = trace.Intervals(["k"], np.zeros(1), np.ones(1))
+            out.append(trace.TraceSummary(dev, dev, h, 0.0, 1e3, launches, 1))
+        return harness.Window(start=0.0, launches=[], setup_s=0.0, traces=out)
+
+    read = harness.metric_module("allgather_ms").read
+    loop = [("regen.loop", 0, 100), ("parallel.reduce", 100, 110)]
+    a = loop + [("parallel.gather", 110, 150), ("parallel.gather", 300, 340)]
+    b = loop + [("parallel.gather", 110, 170), ("parallel.gather", 300, 360)]
+    assert read(window(a, b)) == pytest.approx((80 + 120) / 2 / 2 * 1e-3)
+    assert read(window(loop, loop)) is None               # spans, but none of these
+    assert read(window([("aten::add", 0, 1)])) is None    # a program without spans
