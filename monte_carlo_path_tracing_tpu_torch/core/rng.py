@@ -202,14 +202,17 @@ def pick_from_uniform(
 ) -> torch.Tensor:
     """Inverse-CDF pick with given uniforms ``u`` [N] against ``weights``
     ([L] shared or [N, L] per row): count(cdf <= u * total), clamped to
-    L - 1 (the semantics of :func:`pick_weighted`)."""
+    L - 1 (the semantics of :func:`pick_weighted`). Against per-row
+    weights ``u`` may be [R, N]: R picks a row from the one cdf, a count a
+    round, shaped as ``u``."""
     cdf = torch.cumsum(weights, dim=-1)
     total = cdf[..., -1] if weights_sum is None else weights_sum
-    thresh = u * total
     if weights.dim() == 1:
-        idx = (cdf[None, :] <= thresh[:, None]).sum(dim=-1)
+        idx = (cdf[None, :] <= (u * total)[:, None]).sum(dim=-1)
     else:
-        idx = (cdf <= thresh[:, None]).sum(dim=-1)
+        rounds = u if u.dim() == 2 else u[None]
+        idx = torch.stack([(cdf <= (ur * total)[:, None]).sum(dim=-1)
+                           for ur in rounds]).reshape(u.shape)
     return torch.clamp(idx, max=weights.shape[-1] - 1).to(torch.int32)
 
 

@@ -13,6 +13,17 @@
 // inverse CDF with the caller's uniform u: idx = count(cdf <= u * wsum),
 // clamped to L - 1. Only (idx, wsum) leave the kernel.
 //
+// R picks a point. The caller may give R uniforms a point (u as [R, N],
+// rounds major) and gets R picks (idx as [R, N]) against the one weight
+// row and wsum: the regeneration prepass picks a light for each of its
+// spp_cap rounds at every primary hit. The JAX package leaves that dense
+// pick to XLA, which fuses the [points, lights] field into its scan (no
+// Pallas kernel); in plain torch the field and its cdf were [chunk, L]
+// tensors in device memory. Here phases 1-3 (culls, weights, block sums)
+// run once a point and only the pick repeats: a ballot and at most
+// ceil(L / G) shared reads a round, so the weights still bound the kernel.
+// With R = 1 it is the single pick.
+//
 // What bounds it on this card. Per (point, light) ~88 f32 operations with
 // three square roots and one atan2f (a division inside); the light
 // constants (24 floats per light) are shared by all points, so the kernel
@@ -142,7 +153,7 @@ template <bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 arvo_select_kernel(const float* __restrict__ x, const float* __restrict__ nrm,
                    const float* __restrict__ u, const float4* __restrict__ C, int N, int L,
-                   int* __restrict__ idx_out, float* __restrict__ wsum_out) {
+                   int R, int* __restrict__ idx_out, float* __restrict__ wsum_out) {
   // [STAGED: L lights x LIGHT_F4 float4] [points x L weights] [points x L
   // list entries: 16-bit light indices, as a row fits MAX_SMEM only for
   // L < 2^16 (arvo_layout)]
@@ -211,19 +222,21 @@ arvo_select_kernel(const float* __restrict__ x, const float* __restrict__ nrm,
       if (s == j) end = acc;
     }
     const float wsum = acc;
-    const float thresh = (active ? u[pt] : 0.0f) * wsum;
-    const unsigned over = (__ballot_sync(0xffffffffu, end > thresh) >> base) & GROUP;
-    // 4. The pick: none when no cdf value exceeds u * wsum (L, clamped);
-    // else the first cdf value above it in the first block whose end is.
-    if (active && j == 0) {
-      wsum_out[pt] = wsum;
-      if (over == 0u) idx_out[pt] = L - 1;
-    }
-    if (active && over != 0u && j == __ffs(over) - 1) {
-      float part = 0.0f;
-      int i = 0;
-      while (i < n - 1 && !(prefix + (part + w[l0 + i]) > thresh)) part = part + w[l0 + i++];
-      idx_out[pt] = l0 + i;
+    if (active && j == 0) wsum_out[pt] = wsum;
+    // 4. The picks, one a round (u and idx rounds major): none when no cdf
+    // value exceeds u * wsum (L, clamped); else the first cdf value above it
+    // in the first block whose end is.
+    for (int r = 0; r < R; ++r) {
+      const size_t o = static_cast<size_t>(r) * N + pt;
+      const float thresh = (active ? u[o] : 0.0f) * wsum;
+      const unsigned over = (__ballot_sync(0xffffffffu, end > thresh) >> base) & GROUP;
+      if (active && j == 0 && over == 0u) idx_out[o] = L - 1;
+      if (active && over != 0u && j == __ffs(over) - 1) {
+        float part = 0.0f;
+        int i = 0;
+        while (i < n - 1 && !(prefix + (part + w[l0 + i]) > thresh)) part = part + w[l0 + i++];
+        idx_out[o] = l0 + i;
+      }
     }
     __syncwarp();                      // the row is free for the next point
   }
@@ -245,8 +258,9 @@ static void arvo_layout(int L, bool* staged, int* points) {
 
 extern "C" int mcpt_arvo_select(const float* x, const float* n,
                                 const float* u, const float* consts, int N,
-                                int L, int* idx, float* wsum, void* stream) {
+                                int L, int R, int* idx, float* wsum, void* stream) {
   if (N <= 0) return 0;
+  if (R < 0) return (int)cudaErrorInvalidValue;
   if (L <= 0 || reinterpret_cast<uintptr_t>(consts) % 16) return (int)cudaErrorInvalidValue;
   bool staged;
   int points;
@@ -267,6 +281,6 @@ extern "C" int mcpt_arvo_select(const float* x, const float* n,
   const int blocks = min((N + points - 1) / points, max(1, sms * per_sm));
   fn<<<blocks, points * G, smem, (cudaStream_t)stream>>>(x, n, u,
                                                          reinterpret_cast<const float4*>(consts),
-                                                         N, L, idx, wsum);
+                                                         N, L, R, idx, wsum);
   return (int)cudaGetLastError();
 }

@@ -24,8 +24,9 @@ and launch splitting, and consumes the same streams as the JAX package.
   K4 / K5 instead of K1 / K2.
 - :func:`primary_prepass`: with jitter off every spp of a pixel re-traces
   one camera ray, so the pre-pass traces each pixel once (K4, culled),
-  prepares its Arvo CDF once, and runs the depth-0 shading densely for all
-  spp rounds (shadow rays through K5), leaving continuation seeds. As in
+  picks a light for every spp round of it in one K3 launch (the point's
+  Arvo weights evaluated once), and runs the depth-0 shading densely for
+  all spp rounds (shadow rays through K5), leaving continuation seeds. As in
   JAX, each pixel chunk shades a fixed prefix of its partitioned
   survivors and runs the overflow tail only when they exceed it, so a
   chunk (:class:`PrepassLoop`) is one CUDA graph replay on the card.
@@ -385,22 +386,20 @@ class PrepassLoop:
                              torch.zeros_like(si.emission))
         shade0 = hitok & ~si.is_light
         ck = {"pix_local": pix_local, "si": si, "em_add": em_add, "lidx": None}
-        if self.picks:
-            weights, ck["wsum"] = light_spherical.prepare(scene, si.p, si.ns, consts=self.consts)
-            cdf = torch.cumsum(weights, dim=-1)
-        else:
-            ck["wsum"] = torch.zeros(chunk, device=scene.device)
 
         # All rounds of the chunk as one [S] batch, row-major (round, pixel).
         lk0 = rng.fold_in(rng.fold_in(st["k_r"][:, None, :], gpix[None, :]).reshape(S, 2), 0)
         survive, _ = common.russian_roulette(rng.fold_in(lk0, rng.P_RR), S, cfg.rr_prob)
         if self.picks:
-            # rng.pick_weighted against the cached CDF, densely: the CDF is
-            # non-decreasing, so searchsorted(right) = count(cdf <= u wsum).
+            # rng.pick_weighted's draw for every round, all picked against
+            # the pixel's one cdf: K3 with a row of uniforms a round, so no
+            # [chunk, L] field is made (the plain version on the CPU).
             u_d = rng.uniform(rng.fold_in(rng.fold_in(lk0, rng.P_LIGHT_SELECT), 0), (S,))
-            thresh = (u_d.view(-1, chunk) * ck["wsum"][None, :]).t().contiguous()
-            ck["lidx"] = torch.clamp(torch.searchsorted(cdf, thresh, right=True),
-                                     max=weights.shape[-1] - 1).t().reshape(S).to(torch.int32)
+            lidx, ck["wsum"] = arvo_cuda.arvo_select(self.consts, si.p.contiguous(),
+                                                     si.ns.contiguous(), u_d.view(-1, chunk))
+            ck["lidx"] = lidx.reshape(S)
+        else:
+            ck["wsum"] = torch.zeros(chunk, device=scene.device)
         hit_live = (shade0[None, :] & (self.r_ids < st["rounds"])).reshape(S)
         # mis: RR gates both strategies; brdf: the continuation; split: only
         # the continuation (its direct term runs for every hit sample).

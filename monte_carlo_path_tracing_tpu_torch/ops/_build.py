@@ -39,7 +39,8 @@ SIGNATURES = {
     # K1 / K2: ..., fma (1: fused dots), stream
     "mcpt_nearest": (_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _I, _P),
     "mcpt_occluded": (_P, _P, _P, _P, _P, _I, _I, _F, _P, _I, _P),
-    "mcpt_arvo_select": (_P, _P, _P, _P, _I, _I, _P, _P, _P),
+    # K3: x, n, u, consts, N, L, R (uniforms a point), idx, wsum, stream
+    "mcpt_arvo_select": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     # K4 / K5: ..., nrt, nb, tile, real rows, t_eps, outputs, fma, stream
     "mcpt_nearest_culled": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                             _P, _P, _P, _P, _I, _P),

@@ -13,7 +13,9 @@ The pick contract both hold: idx = count(cdf <= u * wsum), clamped to
 L - 1, so a point that sees no light (wsum 0) gets L - 1 and u = 0 the
 first light of nonzero weight. The kernel sums in another order (blocks
 of lights, csrc/arvo.cu), so wsum agrees to rounding and a pick may move
-by one index on the CDF-boundary fringe.
+by one index on the CDF-boundary fringe. Uniforms ``u`` [R, N] (rounds
+major) give R picks a point against the one weight row: idx [R, N], wsum
+[N] (the prepass's pick for each of its rounds).
 """
 
 from __future__ import annotations
@@ -87,23 +89,26 @@ def prepare_from_consts(C: torch.Tensor, x1: torch.Tensor, n: torch.Tensor,
 
 def arvo_select_plain(C, x1, n, u):
     """Plain version of K3: ``prepare`` + the inverse-CDF pick of
-    ``rng.pick_weighted`` on uniforms ``u``. Returns (idx int32, wsum)."""
+    ``rng.pick_weighted`` on uniforms ``u`` ([N] or [R, N]). Returns (idx
+    int32 shaped as ``u``, wsum [N])."""
     w, wsum = prepare_from_consts(C, x1, n)
     return rng.pick_from_uniform(u, w, wsum), wsum
 
 
 def arvo_select(C, x1, n, u):
-    """Light pick per point: (light_idx [N] int32, weights_sum [N]) for
+    """Light pick per point: (light_idx int32, weights_sum [N]) for
     constants ``C`` (:func:`pack_consts`), points ``x1`` [N,3], normals
-    ``n`` [N,3], uniforms ``u`` [N]. CUDA tensors: K3; CPU: the plain
-    version."""
+    ``n`` [N,3] and uniforms ``u``: [N] for one pick a point (light_idx
+    [N]), or [R, N] for one a round (light_idx [R, N]), all in one
+    launch. CUDA tensors: K3; CPU: the plain version."""
     if x1.device.type == "cpu":
         return arvo_select_plain(C, x1, n, u)
     if x1.device.type != "cuda":
         raise ValueError(f"arvo_select: unsupported device {x1.device}")
     N, L = x1.shape[0], C.shape[0]
+    R = u.shape[0] if u.dim() == 2 else 1
     for name, t, shape in (("C", C, (L, N_CONSTS)), ("x1", x1, (N, 3)),
-                           ("n", n, (N, 3)), ("u", u, (N,))):
+                           ("n", n, (N, 3)), ("u", u, (R, N) if u.dim() == 2 else (N,))):
         if t.device != x1.device or t.dtype != torch.float32:
             raise TypeError(f"arvo_select: {name} must be float32 on {x1.device}")
         if tuple(t.shape) != shape or not t.is_contiguous():
@@ -113,16 +118,20 @@ def arvo_select(C, x1, n, u):
     if C.data_ptr() % 16:                     # bulk copies / float4 loads of C
         raise ValueError("arvo_select: C must be 16-byte aligned")
     lib = _build.load()
-    idx = torch.empty(N, dtype=torch.int32, device=x1.device)
+    idx = torch.empty(u.shape, dtype=torch.int32, device=x1.device)
     wsum = torch.empty(N, dtype=torch.float32, device=x1.device)
     err = lib.mcpt_arvo_select(
-        x1.data_ptr(), n.data_ptr(), u.data_ptr(), C.data_ptr(), N, L,
+        x1.data_ptr(), n.data_ptr(), u.data_ptr(), C.data_ptr(), N, L, R,
         idx.data_ptr(), wsum.data_ptr(),
         torch.cuda.current_stream(x1.device).cuda_stream,
     )
     _build.check(err, "arvo_select (K3)")
     arvo_select.launches += 1
+    arvo_select.picks += N * R
     return idx, wsum
 
 
 arvo_select.launches = 0
+#: Points times rounds over K3's launches: a prepass chunk's one launch
+#: picks spp_cap lights a pixel.
+arvo_select.picks = 0

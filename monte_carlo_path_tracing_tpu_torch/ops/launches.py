@@ -1,10 +1,11 @@
 """The port's kernels by name, with their launch counters.
 
 Each kernel's wrapper adds one to its ``launches`` where it launches the
-kernel and nowhere else. A captured CUDA graph launches its kernels on
-every replay without running the wrappers, so
-``integrator/graph.CapturedStep`` records what one captured iteration
-launched and adds that for each replay (:func:`add`).
+kernel and nowhere else; K3's also adds the picks it made to its
+``picks``. A captured CUDA graph launches its kernels on every replay
+without running the wrappers, so ``integrator/graph.CapturedStep`` records
+what one captured iteration counted and adds that for each replay
+(:func:`add`).
 """
 
 from __future__ import annotations
@@ -21,23 +22,29 @@ KERNELS = {
     "K6 threefry": rng_cuda.threefry,
 }
 
+#: Name -> (wrapper, attribute) of every counter: the kernels' launches,
+#: then K3's points times rounds (a prepass chunk's one launch picks
+#: spp_cap lights a pixel).
+COUNTERS = {**{name: (fn, "launches") for name, fn in KERNELS.items()},
+            "K3 arvo_select picks": (arvo_cuda.arvo_select, "picks")}
+
 
 def counts() -> dict[str, int]:
-    """Every kernel's launches so far."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Every counter so far."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
 
 
 def restore(values: dict[str, int]) -> None:
     """Set the counters to ``values`` (as :func:`counts` returned them)."""
-    for name, fn in KERNELS.items():
-        fn.launches = values[name]
+    for name, (fn, attr) in COUNTERS.items():
+        setattr(fn, attr, values[name])
 
 
 def reset() -> None:
-    restore(dict.fromkeys(KERNELS, 0))
+    restore(dict.fromkeys(COUNTERS, 0))
 
 
 def add(delta: dict[str, int], times: int = 1) -> None:
     """Add ``times`` x ``delta`` to the counters."""
-    for name, fn in KERNELS.items():
-        fn.launches += times * delta[name]
+    for name, (fn, attr) in COUNTERS.items():
+        setattr(fn, attr, getattr(fn, attr) + times * delta[name])

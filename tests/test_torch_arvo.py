@@ -180,3 +180,63 @@ def test_pack_light_consts_is_pack_consts(scenes):
                                     radiance_sum(ts.light_emission()))
     assert C.shape == (ts.num_lights, arvo_cuda.N_CONSTS)
     assert torch.equal(C, arvo_cuda.pack_consts(ts))
+
+
+def _searchsorted_picks(w, wsum, u):
+    """The prepass's dense pick as a [chunk, L] cdf: cumsum, then
+    searchsorted(right=True) of each pixel's row of thresholds u * wsum
+    (u [R, N], rounds major), clamped to L - 1."""
+    cdf = torch.cumsum(w, dim=-1)
+    thresh = (u * wsum[None, :]).t().contiguous()
+    return torch.clamp(torch.searchsorted(cdf, thresh, right=True),
+                       max=w.shape[-1] - 1).t().to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "zero_rows", "ties"])
+def test_round_picks_are_searchsorted(case):
+    """rng.pick_from_uniform with uniforms [R, N] (the R-round pick of
+    arvo_select_plain) is the cumsum + searchsorted(right=True)
+    formulation bit for bit: on random rows, on rows of zero weight (all
+    picks L - 1), and on tied cdf values (runs of zero weights, and
+    thresholds that land exactly on a cdf value, which both count); each
+    round is the [N] pick with its own uniforms."""
+    g = torch.Generator().manual_seed(19)
+    N, L, R = 257, 40, 6
+    w = torch.rand(N, L, generator=g)
+    u = torch.rand(R, N, generator=g)
+    if case == "zero_rows":
+        w[::3] = 0.0
+    elif case == "ties":
+        w = torch.randint(0, 3, (N, L), generator=g).float()       # integer cdf values
+        cdf = torch.cumsum(w, dim=-1)
+        col = torch.randint(0, L, (R, N), generator=g)
+        u = torch.gather(cdf, 1, col.t()).t() / torch.clamp(cdf[:, -1], min=1.0)[None, :]
+    wsum = w.sum(dim=-1)
+    got = trng.pick_from_uniform(u, w, wsum)
+    want = _searchsorted_picks(w, wsum, u)
+    assert got.shape == (R, N) and got.dtype == torch.int32
+    assert torch.equal(got, want)
+    if case == "zero_rows":
+        assert bool((got[:, ::3] == L - 1).all())
+    if case == "ties":                  # thresholds on a cdf value occur
+        thresh = u * wsum[None, :]
+        assert bool((torch.cumsum(w, -1)[None] == thresh[..., None]).any())
+    for r in range(R):
+        assert torch.equal(trng.pick_from_uniform(u[r], w, wsum), got[r])
+
+
+def test_plain_round_picks_on_veach(scenes):
+    """arvo_select_plain with uniforms [R, N] at Veach's shading points:
+    picks [R, N] equal to prepare + searchsorted(right=True) bit for bit,
+    wsum the [N] call's; [1, N] is the [N] call."""
+    _, ts = scenes
+    x1, nrm, u = map(torch.from_numpy, _points(ts, 512, seed=2))
+    C = arvo_cuda.pack_consts(ts)
+    u4 = torch.stack([u, torch.flip(u, [0]), 1.0 - u, torch.zeros_like(u)])
+    i4, w4 = arvo_cuda.arvo_select(C, x1, nrm, u4)
+    w, wsum = tls.prepare(ts, x1, nrm, consts=C)
+    assert torch.equal(i4, _searchsorted_picks(w, wsum, u4)) and torch.equal(w4, wsum)
+    i1, w1 = arvo_cuda.arvo_select(C, x1, nrm, u)
+    i11, w11 = arvo_cuda.arvo_select(C, x1, nrm, u[None])
+    assert i11.shape == (1, 512) and torch.equal(i11[0], i1) and torch.equal(w11, w1)
+    assert torch.equal(i4[0], i1)

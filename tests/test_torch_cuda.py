@@ -502,36 +502,65 @@ def _points(N, dev, seed=1):
             f(nrm / np.linalg.norm(nrm, axis=-1, keepdims=True)), f(g.random(N)))
 
 
+def _rounds(u, R, seed=0):
+    """[R, N] uniforms, rounds major: ``u`` first, then R - 1 rows drawn."""
+    g = np.random.default_rng(seed)
+    more = torch.from_numpy(g.random((R - 1, u.shape[0]), dtype=np.float32)).to(u.device)
+    return torch.cat([u[None], more]).contiguous()
+
+
+def _assert_rounds_are_single_picks(C, x1, nrm, u, ik, wk):
+    """Each round of K3's [R, N] picks is the [N] call on that round's
+    uniforms, bit for bit, with the same wsum."""
+    for r in range(u.shape[0]):
+        i1, w1 = arvo_cuda.arvo_select(C, x1, nrm, u[r].contiguous())
+        assert torch.equal(i1, ik[r]) and torch.equal(w1, wk), r
+
+
+@pytest.mark.parametrize("R", [1, 4, 16])
 @pytest.mark.parametrize("L", [1, ARVO_G - 1, ARVO_G + 1, 320, 1000])
-def test_k3_light_counts(dev, L):
+def test_k3_light_counts(dev, L, R):
     """K3 at light counts that leave its batches of G lights and its blocks
     of ceil(L / G) ragged (L not a multiple of G, L < G) and at 1,000
-    lights, whose constants are read from global memory, not staged: picks
-    equal the plain version's except the CDF-boundary fringe, wsum to rtol
-    1e-5."""
+    lights, whose constants are read from global memory, not staged, with
+    R uniforms a point (u [R, N]: the prepass's pick for each round):
+    each round's picks equal the plain version's except the CDF-boundary
+    fringe, wsum to rtol 1e-5; each round is the [N] call bit for bit."""
     C = _lights(L, dev, seed=L)
     x1, nrm, u = _points(4099, dev, seed=L)
+    u = _rounds(u, R, seed=L)
+    n3, p3 = arvo_cuda.arvo_select.launches, arvo_cuda.arvo_select.picks
     ik, wk = arvo_cuda.arvo_select(C, x1, nrm, u)
+    assert arvo_cuda.arvo_select.launches == n3 + 1
+    assert arvo_cuda.arvo_select.picks == p3 + R * 4099
     ip, wp = arvo_cuda.arvo_select_plain(C, x1, nrm, u)
+    assert ik.shape == (R, 4099) and wk.shape == (4099,)
     assert bool((wp > 0).any()) and int(ik.min()) >= 0 and int(ik.max()) < L
-    assert int((ik != ip).sum()) <= 5
+    for r in range(R):
+        assert int((ik[r] != ip[r]).sum()) <= 5, r
     torch.testing.assert_close(wk, wp, rtol=1e-5, atol=1e-6)
+    _assert_rounds_are_single_picks(C, x1, nrm, u, ik, wk)
 
 
+@pytest.mark.parametrize("R", [1, 4, 16])
 @pytest.mark.parametrize("case", ["sees_no_light", "u_zero", "u_top"])
-def test_k3_pick_edges(dev, case):
-    """A point that sees no light gets L - 1 and wsum 0; u = 0 picks the
-    first light of nonzero weight; u = 1 - 2**-24 the last one, or L - 1
-    where u * wsum rounds to the last cdf value or above."""
+def test_k3_pick_edges(dev, case, R):
+    """In every round of u [R, N]: a point that sees no light gets L - 1
+    and wsum 0; u = 0 picks the first light of nonzero weight; u = 1 -
+    2**-24 the last one, or L - 1 where u * wsum rounds to the last cdf
+    value or above."""
     C = _lights(320, dev)
     x1, nrm, u = _points(4096, dev)
     L = C.shape[0]
     if case == "sees_no_light":                  # above every light, facing up
         x1 = x1 + torch.tensor([0.0, 20.0, 0.0], device=dev)
         nrm = torch.tensor([[0.0, 1.0, 0.0]], device=dev).expand_as(nrm).contiguous()
+        u = _rounds(u, R)
     else:
-        u = torch.full_like(u, 0.0 if case == "u_zero" else 1.0 - 2.0 ** -24)
+        u = torch.full((R, u.shape[0]), 0.0 if case == "u_zero" else 1.0 - 2.0 ** -24,
+                       device=dev)
     ik, wk = arvo_cuda.arvo_select(C, x1, nrm, u)
+    _assert_rounds_are_single_picks(C, x1, nrm, u, ik, wk)
     w, _ = arvo_cuda.prepare_from_consts(C, x1, nrm)
     lit = w.sum(dim=1) > 0
     if case == "sees_no_light":
@@ -542,10 +571,11 @@ def test_k3_pick_edges(dev, case):
     last = (L - 1 - (w > 0).flip(1).int().argmax(dim=1)).int()
     # A weight whose sA lies within rounding of the 1e-6 cull may be zero in
     # one version only: counted.
-    if case == "u_zero":
-        assert int((ik != first)[lit].sum()) <= 2
-    else:
-        assert int((~((ik == last) | (ik == L - 1)))[lit].sum()) <= 2
+    for r in range(R):
+        if case == "u_zero":
+            assert int((ik[r] != first)[lit].sum()) <= 2
+        else:
+            assert int((~((ik[r] == last) | (ik[r] == L - 1)))[lit].sum()) <= 2
 
 
 def test_k3_matches_plain(dev):
@@ -1014,6 +1044,52 @@ def test_captured_prepass_deterministic_pair_is_bit_equal(dev):
                                                 _veach_prepass(dev, False, True))
     assert grays == erays and np.array_equal(gfb, efb)
     assert torch.equal(gp[0].fb_pre, ep[0].fb_pre)
+
+
+#: tests/test_torch_prepass_graph.py's prepass: Veach 32x24 in chunks of
+#: 256 pixels x 4 spp (three chunks).
+PRE_W, PRE_H, PRE_SPP, PRE_CHUNK = 32, 24, 4, 256
+
+
+@pytest.mark.parametrize("graph", [None, False])
+def test_prepass_picks_every_round_in_one_k3_launch(dev, monkeypatch, graph):
+    """The prepass on the card, captured (chunk 0 eager, chunk 1 captured,
+    chunk 2 a replay) and with graph=False, picks the light of every round
+    of a chunk in one K3 launch: 3 launches and 3 x 256 x 4 picks, replays
+    counted. Against the same prepass with the plain pick on the card
+    (the [chunk, L] field in torch, its cumsum and a count a round) at the
+    tolerances tests/test_torch_prepass_graph.py holds fb_pre to: counts,
+    rays, primary hits and seeds equal (the pick moves no seed); fb_pre at
+    most 1% of pixels (at least 2) beyond rtol 1e-2 / atol 1e-3, its sum
+    to 1e-3; cache_wsum to rtol 1e-5."""
+    sc = _scene("veach-mis")
+    sc = dataclasses.replace(sc, camera=dataclasses.replace(sc.camera, width=PRE_W,
+                                                            height=PRE_H)).to(dev)
+    cfg = RenderConfig(width=PRE_W, height=PRE_H, spp=PRE_SPP, estimator="mis",
+                       light_sampler="spherical_triangle", max_depth=16, seed=7)
+
+    def prepass():
+        return regen.primary_prepass(sc, cfg, rng.base_key(7, device=dev), PRE_W * PRE_H,
+                                     PRE_SPP, PRE_SPP, pix_chunk=PRE_CHUNK, graph=graph)
+
+    before = launches.counts()
+    got = prepass()
+    after = launches.counts()
+    assert after["K3 arvo_select"] - before["K3 arvo_select"] == 3
+    assert after["K3 arvo_select picks"] - before["K3 arvo_select picks"] == (
+        3 * PRE_CHUNK * PRE_SPP)
+    monkeypatch.setattr(arvo_cuda, "arvo_select", arvo_cuda.arvo_select_plain)
+    want = prepass()
+    assert got[1:] == want[1:] and want[1] > 0
+    k, g, w = want[1], got[0], want[0]
+    for f in ("sample", "wi", "tp", "pdf"):
+        assert torch.equal(getattr(g, f)[:k], getattr(w, f)[:k]), f
+    for f in ("cache_p", "cache_ns", "cache_tri"):
+        assert torch.equal(getattr(g, f), getattr(w, f)), f
+    torch.testing.assert_close(g.cache_wsum, w.cache_wsum, rtol=1e-5, atol=1e-6)
+    a, b = w.fb_pre.cpu().numpy(), g.fb_pre.cpu().numpy()
+    coarse = ~np.isclose(b, a, rtol=1e-2, atol=1e-3).all(-1)
+    assert int(coarse.sum()) <= max(2, PRE_W * PRE_H // 100) and abs(b.sum() / a.sum() - 1) < 1e-3
 
 
 @pytest.mark.parametrize("estimator", ["mis", "split", "brdf"])

@@ -27,7 +27,9 @@ both on stand-in graphs (integrator/graph.py).
   captured, the rest replays; the bounce's first bounce eager, its second
   captured, every later bounce of every batch a replay. Results are
   bit-equal to ``graph=False``, and the launch counters (the culled
-  kernels' and K1's, bumped by stand-in wrappers) equal the eager ones.
+  kernels', K1's and K3's with its picks, bumped by stand-in wrappers)
+  equal the eager ones; a prepass chunk picks its lights for every round
+  in one K3 launch.
 - The in-place bounce step against JAX's render_rays on the cells of
   tests/test_torch_wavefront.py::test_render_rays_matches_jax, at its
   tolerances (rays to 0.5%, at most 1% of lanes (at least 2) beyond rtol
@@ -58,7 +60,7 @@ from monte_carlo_path_tracing_tpu_torch.diff import grad as tgrad
 from monte_carlo_path_tracing_tpu_torch.integrator import graph as graph_mod
 from monte_carlo_path_tracing_tpu_torch.integrator import regen, wavefront
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
-from monte_carlo_path_tracing_tpu_torch.ops import intersect_cuda, launches
+from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda, intersect_cuda, launches
 from monte_carlo_path_tracing_tpu_torch.render.camera import generate_rays
 from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image
 from monte_carlo_path_tracing_tpu_torch.scene import scene_from_arrays
@@ -181,8 +183,10 @@ def test_zero_round_prepass_shades_nothing(veach_scene, counted_traces):
 def counted_traces(monkeypatch):
     """Stand-ins for the kernels' launches on CPU tensors: each trace bumps
     the counter of the kernel it would launch on the card (K4 / K5 culled,
-    K1 / K2 otherwise)."""
+    K1 / K2 otherwise), each light pick K3's launches and its picks (one
+    a uniform)."""
     real_i, real_o = ops_intersect.intersect, ops_intersect.occluded
+    real_k3 = arvo_cuda.arvo_select
 
     def intersect(*a, **kw):
         k = intersect_cuda.nearest_hit_culled if kw.get("cull") else intersect_cuda.nearest_hit
@@ -194,8 +198,14 @@ def counted_traces(monkeypatch):
         k.launches += 1
         return real_o(*a, **kw)
 
+    def arvo_select(C, x1, n, u):
+        real_k3.launches += 1
+        real_k3.picks += u.numel()
+        return real_k3(C, x1, n, u)
+
     monkeypatch.setattr(ops_intersect, "intersect", intersect)
     monkeypatch.setattr(ops_intersect, "occluded", occluded)
+    monkeypatch.setattr(arvo_cuda, "arvo_select", arvo_select)
     before = launches.counts()
     yield
     launches.restore(before)
@@ -268,6 +278,8 @@ def test_prepass_graph_schedule_keeps_the_eager_prepass(veach_scene, monkeypatch
     assert eager == {k: c2[k] - c1[k] for k in c0}
     assert eager["K4 nearest_hit_culled"] == 3 and eager["K5 occluded_culled"] == (6 if forced
                                                                                     else 3)
+    # One light pick a chunk for all its rounds: CHUNK x SPP picks.
+    assert eager["K3 arvo_select"] == 3 and eager["K3 arvo_select picks"] == 3 * CHUNK * SPP
 
 
 def test_graph_true_on_cpu_raises(cornell_scene):
