@@ -75,7 +75,7 @@ from monte_carlo_path_tracing_tpu_torch.core import rng
 from monte_carlo_path_tracing_tpu_torch.parallel import (
     make_mesh, make_train_step, ray_sharding, render_rays_sharded, replicated,
 )
-from monte_carlo_path_tracing_tpu_torch.integrator import regen
+from monte_carlo_path_tracing_tpu_torch.integrator import shading
 from monte_carlo_path_tracing_tpu_torch.parallel.mesh import gather_rows
 from monte_carlo_path_tracing_tpu_torch.parallel.sharded import (
     deinterleave_framebuffer, make_regen_sharded, render_regen_sharded,
@@ -140,8 +140,8 @@ for job in jobs:
                                                                 height=cfg.height))
         keys = [rng.fold_in(rng.base_key(cfg.seed), i) for i in range(len(cfgs["job_spp"]))]
         shards = lambda fb: deinterleave_framebuffer(gather_rows(fb, mesh).numpy(), world)
-        real, made = regen.scene_context, []
-        regen.scene_context = lambda *a: made.append(1) or real(*a)
+        real, made = shading.scene_context, []
+        shading.scene_context = lambda *a: made.append(1) or real(*a)
         with make_regen_sharded(sc, cfg, mesh, 64, spp_cap=cfg.spp) as fn:
             fn(sc, keys[0], 0)
             parts = {name: part for name, (_, part) in fn.job.parts.items()}
@@ -151,7 +151,7 @@ for job in jobs:
                 out[f"job_fb_{i}"], out[f"job_rays_{i}"] = shards(fb), n
                 assert {name: part for name, (_, part) in fn.job.parts.items()} == parts
         assert not fn.job.parts
-        regen.scene_context = real
+        shading.scene_context = real
         out["job_contexts"] = len(made)
         for i, (k, spp) in enumerate(zip(keys, cfgs["job_spp"])):
             with make_regen_sharded(sc, cfg, mesh, 64, spp_cap=cfg.spp) as one:

@@ -34,7 +34,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from monte_carlo_path_tracing_tpu_torch.core import rng
-from monte_carlo_path_tracing_tpu_torch.integrator import regen
+from monte_carlo_path_tracing_tpu_torch.integrator import regen, shading
 from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image_regen
 from monte_carlo_path_tracing_tpu_torch.scene import load_scene
 from monte_carlo_path_tracing_tpu_torch.utils.config import RenderConfig
@@ -94,9 +94,9 @@ def test_job_replays_its_launches_as_eager_launches(scene, monkeypatch, cached):
                      for lp in loops]))
         return out
 
-    real_context = regen.scene_context
+    real_context = shading.scene_context
     monkeypatch.setattr(regen, name, launch)
-    monkeypatch.setattr(regen, "scene_context", lambda *a: made.append(1) or real_context(*a))
+    monkeypatch.setattr(shading, "scene_context", lambda *a: made.append(1) or real_context(*a))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         r = render_image_regen(scene, cfg, lanes=LANES, max_samples_per_launch=2 * N_PIX)
 
@@ -132,8 +132,8 @@ def test_a_job_takes_a_new_key_at_every_launch(scene, monkeypatch, cached):
         assert not torch.equal(a[0], b[0])           # the keys give other images
 
     loops = _stand_in_graphs(monkeypatch, _state_of)
-    real_context, made = regen.scene_context, []
-    monkeypatch.setattr(regen, "scene_context", lambda *a: made.append(1) or real_context(*a))
+    real_context, made = shading.scene_context, []
+    monkeypatch.setattr(shading, "scene_context", lambda *a: made.append(1) or real_context(*a))
     with regen.RegenJob() as job:
         for i, (k, w) in enumerate(zip(keys, want)):
             fb, rays, iters, _ = _launch(scene, cfg, cached, 0, 2, key=k, job=job)
