@@ -38,11 +38,24 @@ exits non-zero without printing a result:
    shadow batch with t_max moved
    past each ray's first hit, so that its flags are a mix and some ray
    tiles are all blocked;
+4b. vertex: the regen loop's fused MIS / Arvo vertex (``csrc/vertex.cu``:
+   emit_rr, light_brdf, nee_add around K3 and K2) against
+   ``shading.vertex_plain``'s torch math on the card, on the inputs of the
+   main path's 4th loop iteration (Veach 1024^2 x 8 spp, cached at 65,536
+   lanes and uncached at 32,768): L, tp, the live mask, the BRDF sample
+   (wi, pdf, lobe), wsum, the ray count, K3's uniform and the shadow rays
+   with what blocks them bit for bit; each fused kernel launched once and
+   K6 never, the torch vertex K6 12 times; each kernel's time against the
+   torch kernels between the same launches of the torch vertex (emit_rr:
+   before K3; light_brdf and nee_add together: after K3, the shadow test
+   left out), its bound from the bytes a lane reads and writes, and the
+   whole vertex both ways;
 5. end to end, uncached: the Veach MIS render at the bench's uncached
    configuration (1024^2, 8 spp, MIS + spherical-triangle NEE, depth 16,
    seed 0, 32,768 lanes) through ``render_image_regen`` with
-   ``primary_cache=False``; K1-K3 must launch; checksum and ray count are
-   held against the values recorded for the same streams;
+   ``primary_cache=False``; K1-K3, K6 and the fused vertex must launch;
+   checksum and ray count are held against the values recorded for the
+   same streams;
 6. end to end, cached (the main path): the same render with the default
    ``primary_cache``, which routes to the primary-hit cache; all five
    kernels must launch; checksum and ray count held as in 5;
@@ -147,7 +160,7 @@ exits non-zero without printing a result:
    (``docs/torch_bench_exact_ref.json``).
 
 Every phase prints its wall (``[wall]``). The last lines are a JSON
-object of per-kernel results, K1-K6 (time, plain version's time, bound — the larger of the operations this run's inputs
+object of per-kernel results, K1-K6 and the fused vertex (time, plain version's time, bound — the larger of the operations this run's inputs
 need over the f32 peak and the bytes moved over the memory rate — and
 share of the bound, launches on the cached render and, as
 ``launches_fixed_depth``, on the fixed-depth render; K4 also ``k1_ms`` and
@@ -164,7 +177,10 @@ launches in the timed rep of phase 15's two bench rows; K1 also
 ``light_accel``, its times on the lights-only accels, and ``grid_fan``,
 the grid's and K1's times on the camera fan; K6 its device ``ms`` and
 ``call_ms``, ``plain_device_ms`` and ``plain_kernels``, ``uniform_ms``, every
-call shape under ``shapes`` and ``launches_per_iteration``), the card's
+call shape under ``shapes`` and ``launches_per_iteration``; the fused
+vertex's three kernels from phase 4b, each with ``plain_kernels``,
+``vertex_ms`` and ``plain_vertex_ms``, ``at_32768`` (uncached), and
+light_brdf's ``plain_ms`` covering nee_add's part too), the card's
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": ...}``.
 """
 
@@ -191,11 +207,11 @@ from monte_carlo_path_tracing_tpu_torch.core import rng
 from monte_carlo_path_tracing_tpu_torch.diff import grad as dgrad
 from monte_carlo_path_tracing_tpu_torch.diff import inverse
 from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
-from monte_carlo_path_tracing_tpu_torch.integrator import common, regen, render_rays
+from monte_carlo_path_tracing_tpu_torch.integrator import common, regen, render_rays, shading
 from monte_carlo_path_tracing_tpu_torch.integrator import graph as graph_mod
 from monte_carlo_path_tracing_tpu_torch.ops import _build, arvo_cuda, intersect_cuda
 from monte_carlo_path_tracing_tpu_torch.ops import launches as launches_mod
-from monte_carlo_path_tracing_tpu_torch.ops import rng_cuda
+from monte_carlo_path_tracing_tpu_torch.ops import rng_cuda, vertex_cuda
 from monte_carlo_path_tracing_tpu_torch.ops import grid as grid_mod
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.parallel import make_mesh, make_train_step
@@ -332,8 +348,9 @@ PROFILE_SPP, PROFILE_TOP, PROFILE_GAPS = 1, 10, 5
 TRACE_DIR = os.path.join(ROOT, "build", "trace")
 #: The __global__ name of each kernel (csrc/intersect.cu:337, :433, :545,
 #: :605; csrc/arvo.cu:154; K6: csrc/rng.cu's threefry_fold_kernel and
-#: threefry_bits_kernel), found in the trace's kernel names as a substring
-#: (no name is a substring of another).
+#: threefry_bits_kernel; the fused vertex: csrc/vertex.cu's mis_vertex_*),
+#: found in the trace's kernel names as a substring (no name is a
+#: substring of another).
 KERNEL_SYMBOLS = {
     "K1 nearest_hit": "nearest_kernel",
     "K2 occluded": "occluded_kernel",
@@ -341,7 +358,24 @@ KERNEL_SYMBOLS = {
     "K4 nearest_hit_culled": "nearest_culled_kernel",
     "K5 occluded_culled": "occluded_culled_kernel",
     "K6 threefry": "threefry_",
+    "vertex emit_rr": "mis_vertex_emit",
+    "vertex light_brdf": "mis_vertex_light_brdf",
+    "vertex nee_add": "mis_vertex_nee_add",
 }
+#: Phase "vertex": the regen loop's fused MIS / Arvo vertex (csrc/vertex.cu)
+#: against shading.vertex_plain on the inputs of the main path's
+#: VERTEX_ITER-th loop iteration, cached at LANES_CACHED lanes and uncached
+#: at LANES; its kernels' bounds from VERTEX_BYTES, the bytes a lane each
+#: reads and writes once (emit_rr: 42 read, 29 written, and an emissive
+#: hit's 56 more not counted; light_brdf: 101 read, 58 written; nee_add:
+#: 37 read, 12 written; the light table's 64-byte rows from cache).
+VERTEX_ITER = 4
+#: CUPTI now and then hands a short torch.profiler session back without
+#: its kernel records (once in a full run, on the card); the phase traces
+#: again at most this many times, and reports a device time it never got
+#: as None (not measured).
+VERTEX_CUPTI_RETRIES = 3
+VERTEX_BYTES = {"vertex emit_rr": 71, "vertex light_brdf": 159, "vertex nee_add": 49}
 COMPAT_SMALL, COMPAT_CACHE_GAP = 512, 1e-4
 BLOCKER_SPP, BLOCKER_CPU_RES = 2, 32
 SHOOT_RES, SHOOT_CPU_RES = 256, 32
@@ -1023,6 +1057,9 @@ KERNELS = launches_mod.KERNELS
 #: loop launch.
 UNCULLED = ["K1 nearest_hit", "K2 occluded", "K3 arvo_select", "K6 threefry"]
 CULLED = ["K4 nearest_hit_culled", "K5 occluded_culled"]
+#: The regen loop's fused MIS / Arvo vertex, which ref_mis_weights and the
+#: fixed-depth bounce leave to the torch math.
+FUSED = ["vertex emit_rr", "vertex light_brdf", "vertex nee_add"]
 
 
 def reset_counters():
@@ -1031,6 +1068,278 @@ def reset_counters():
 
 def counters():
     return launches_mod.counts()
+
+
+def _vertex_inputs(sc, cfg, lanes: int, cached: bool):
+    """The arguments of the regen loop's VERTEX_ITER-th shading.vertex call
+    (eager; cached: the seeded loop after the prepass), its tensors cloned:
+    (args, kwargs)."""
+    dev = sc.device
+    n_pix = sc.camera.width * sc.camera.height
+    key = rng.base_key(cfg.seed, device=dev)
+    seeds, total = None, n_pix * cfg.spp
+    if cached:
+        seeds, total, _, _ = regen.primary_prepass(sc, cfg, key, n_pix, cfg.spp, cfg.spp)
+    st, iterate, _ = regen.regen_loop(sc, cfg, key, n_pix, total, lanes=lanes, seed_mode=seeds)
+
+    def clone(x):
+        if torch.is_tensor(x):
+            return x.clone()
+        if isinstance(x, tuple):
+            return type(x)(*map(clone, x)) if hasattr(x, "_fields") else tuple(map(clone, x))
+        return x
+
+    real, calls, got = shading.vertex, [], []
+
+    def spy(c, *a, **kw):
+        calls.append(None)
+        if len(calls) == VERTEX_ITER:
+            got.append(((c, *clone(a)), clone(kw)))
+        return real(c, *a, **kw)
+
+    shading.vertex = spy
+    try:
+        for _ in range(VERTEX_ITER):
+            iterate(st)
+    finally:
+        shading.vertex = real
+    torch.cuda.synchronize()
+    return got[0]
+
+
+@contextlib.contextmanager
+def _vertex_record(rec, marks=None):
+    """Within: K3 (``arvo_cuda.arvo_select``) leaves its uniform in
+    ``rec["u"]`` and the shadow test (``ops_intersect.occluded``) its rays
+    and result in ``rec["shadow"]``; with ``marks`` a list, each appends a
+    CUDA event before and after its launch. K3's counters stay its
+    wrapper's."""
+    real_select, real_occluded = arvo_cuda.arvo_select, ops_intersect.occluded
+
+    def mark():
+        if marks is not None:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+
+    class Select:
+        launches = property(lambda self: real_select.launches,
+                            lambda self, v: setattr(real_select, "launches", v))
+        picks = property(lambda self: real_select.picks,
+                         lambda self, v: setattr(real_select, "picks", v))
+
+        def __call__(self, C, x1, n, u):
+            rec["u"] = u
+            mark()
+            out = real_select(C, x1, n, u)
+            mark()
+            return out
+
+    def occluded(*a, **kw):
+        mark()
+        blocked = real_occluded(*a, **kw)
+        mark()
+        rec["shadow"] = [*a[1:5], kw.get("cull"), blocked]
+        return blocked
+
+    arvo_cuda.arvo_select, ops_intersect.occluded = Select(), occluded
+    try:
+        yield
+    finally:
+        arvo_cuda.arvo_select, ops_intersect.occluded = real_select, real_occluded
+
+
+def _vertex_fields(v, rec):
+    """Every output of a vertex call by name: the Vertex's fields, K3's
+    uniform and the shadow rays (origin, direction, length, triangle,
+    blocked)."""
+    p, wl, dist, tri, _, blocked = rec["shadow"]
+    return {"L": v.L, "tp": v.tp, "alive": v.alive, "wi": v.bs.wi, "pdf": v.bs.pdf,
+            "lobe": v.bs.is_specular, "wsum": v.wsum, "nrays": v.nrays, "u": rec["u"],
+            "shadow_o": p, "shadow_d": wl, "shadow_t": dist, "shadow_tri": tri,
+            "blocked": blocked}
+
+
+def _plain_segments(fn, reps=20, warm=3, traced=3):
+    """The parts of ``fn`` (a vertex_plain call) before K3, and after K3
+    less the shadow test: median ms of each by CUDA events around both
+    launches (the call's time, its host's included), and median device ms
+    and kernels of each from torch.profiler's kernel records (CUPTI) of
+    ``traced`` calls. Returns ((call ms), (device ms), (kernels)), each a
+    pair."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    seg = ([], [])
+    for _ in range(reps):
+        marks = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with _vertex_record({}, marks):
+            start.record()
+            fn()
+            end.record()
+        end.synchronize()
+        seg[0].append(start.elapsed_time(marks[0]))
+        seg[1].append(marks[1].elapsed_time(marks[2]) + marks[3].elapsed_time(end))
+    dev, kernels = ([], []), (None, None)
+    for _ in range(traced + VERTEX_CUPTI_RETRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        names = [e.name for e in ev]
+        us = [e.time_range.elapsed_us() for e in ev]
+        k3 = [i for i, n in enumerate(names) if KERNEL_SYMBOLS["K3 arvo_select"] in n]
+        k2 = [i for i, n in enumerate(names) if KERNEL_SYMBOLS["K2 occluded"] in n]
+        if len(k3) != 1 or len(k2) != 1:
+            log(f"[vertex] a trace of the torch vertex holds {len(names)} kernel records, "
+                f"K3 {len(k3)}, K2 {len(k2)}: traced again")
+            continue
+        (k3,), (k2,) = k3, k2
+        dev[0].append(sum(us[:k3]) / 1e3)
+        dev[1].append((sum(us[k3 + 1:k2]) + sum(us[k2 + 1:])) / 1e3)
+        kernels = (k3, len(names) - k3 - 2)
+        if len(dev[0]) == traced:
+            break
+    dev_ms = tuple(statistics.median(d) if d else None for d in dev)
+    return (statistics.median(seg[0]), statistics.median(seg[1])), dev_ms, kernels
+
+
+def _vertex_device(fn, reps: int, kernels: int | None = None):
+    """:func:`_device_profile` of ``fn``, traced again (VERTEX_CUPTI_RETRIES
+    times at most) where CUPTI handed back no kernel records, or not
+    ``kernels`` a call where that count is given: (kernels a call, device
+    ms a call), or (0, None) where no trace held them."""
+    for _ in range(1 + VERTEX_CUPTI_RETRIES):
+        n_k, ms = _device_profile(fn, reps)
+        if n_k > 0 and kernels in (None, n_k):
+            return n_k, ms
+        log(f"[vertex] a trace held {n_k} kernel records a call: traced again")
+    return 0, None
+
+
+def _vertex_case(sc, cfg, lanes: int, cached: bool):
+    """The fused vertex against vertex_plain on one loop state: every
+    output bit for bit, the launches of each, each kernel's time against
+    its plain part's. Returns {kernel name: entry}."""
+    tag = f"{'cached' if cached else 'uncached'}, {lanes} lanes"
+    (c, si, hit, tp, L, nrays, kd, depth, prev, *rest), kw = _vertex_inputs(sc, cfg, lanes,
+                                                                              cached)
+    assert not rest, rest
+    cull = kw.get("cull")
+    assert not kw.get("nee") and shading.takes_fused(c, si, tp, L, kd, depth, prev), \
+        f"[vertex] {tag}: the loop's call does not take the fused vertex"
+
+    def fused():
+        return shading.vertex_fused(c, si, hit, tp, L, nrays, kd, depth, prev, cull)
+
+    def plain():
+        return shading.vertex_plain(c, si, hit, tp, L, nrays, kd, depth, prev, cull=cull)
+
+    out = {}
+    for name, fn in (("fused", fused), ("plain", plain)):
+        rec = {}
+        before = counters()
+        with _vertex_record(rec):
+            v = fn()
+        torch.cuda.synchronize()
+        after = counters()
+        out[name] = (_vertex_fields(v, rec), {k: after[k] - before[k] for k in after})
+    (ff, fl), (pf, pl) = out["fused"], out["plain"]
+    differ, err = {}, 0.0
+    for k, a in ff.items():
+        b = pf[k]
+        if a.dtype == torch.float32:
+            differ[k] = int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            d = (a - b).abs()
+            d = d[torch.isfinite(d)]
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+        else:
+            differ[k] = int((a != b).sum())
+    live = int(ff["alive"].sum())
+    log(f"[vertex] veach {RES}^2 x {SPP} spp {tag}, loop iteration {VERTEX_ITER}: "
+        f"{int(hit.sum())} live hits, {live} go on; values differing from vertex_plain "
+        f"{differ} (max |diff| {err:g}); rays {int(ff['nrays'])} / {int(pf['nrays'])}; "
+        f"launches fused { {k: n for k, n in fl.items() if n} }, plain "
+        f"{ {k: n for k, n in pl.items() if n} }")
+    assert not any(differ.values()) and int(ff["nrays"]) == int(pf["nrays"]), \
+        f"[vertex] {tag}: the fused vertex differs from vertex_plain: {differ}"
+    assert all(fl[k] == 1 for k in FUSED) and fl["K6 threefry"] == 0, fl
+    assert all(pl[k] == 0 for k in FUSED) and pl["K6 threefry"] == 12, pl
+    assert fl["K3 arvo_select"] == pl["K3 arvo_select"] == 1 and live > 0
+
+    # Each kernel alone on this state, then the whole vertex both ways.
+    pb, prev_p, prev_ns, prev_w = prev
+    e = vertex_cuda.emit_rr(hit, si.is_light, si.light_idx, si.emission, tp, L, depth, pb, prev_p,
+                            prev_ns, prev_w, c.table, kd, nrays, cfg.rr_prob)
+    lidx, wsum = arvo_cuda.arvo_select(c.consts, si.p, si.ns, e.u)
+    s = vertex_cuda.light_brdf(kd, lidx, wsum, si.p, si.ns, si.wo, si.kd, si.ks, si.ns_exp,
+                               e.alive, e.tp, c.table, e.nrays.clone(), cfg.branch_pdf_compat)
+    blocked = ops_intersect.occluded(c.accel, si.p, s.wl, s.dist, si.tri_id, cull=cull)
+    L_acc, n_acc = e.L.clone(), e.nrays.clone()
+    calls = {"vertex emit_rr": lambda: vertex_cuda.emit_rr(
+                 hit, si.is_light, si.light_idx, si.emission, tp, L, depth, pb, prev_p, prev_ns,
+                 prev_w, c.table, kd, nrays, cfg.rr_prob),
+             "vertex light_brdf": lambda: vertex_cuda.light_brdf(
+                 kd, lidx, wsum, si.p, si.ns, si.wo, si.kd, si.ks, si.ns_exp, e.alive, e.tp,
+                 c.table, n_acc, cfg.branch_pdf_compat),
+             "vertex nee_add": lambda: vertex_cuda.nee_add(L_acc, e.tp, s.contrib, blocked)}
+    ms, call_ms = {}, {}
+    for name, fn in calls.items():
+        _, ms[name] = _vertex_device(fn, 20, kernels=1)
+        call_ms[name] = time_ms(fn)
+    (pc1, pc23), (p1, p23), (k1, k23) = _plain_segments(plain)
+    whole = {"fused": (_vertex_device(fused, 5), time_ms(fused)),
+             "plain": (_vertex_device(plain, 5), time_ms(plain))}
+    log(f"[vertex] {tag}: device ms (CUPTI; None: not measured) / call ms (CUDA events, the "
+        f"host's time in it): emit_rr {ms['vertex emit_rr']} / {call_ms['vertex emit_rr']:.5f} "
+        f"against the torch part before K3 {p1} / {pc1:.5f} ({k1} kernels); light_brdf + "
+        f"nee_add {ms['vertex light_brdf']} + {ms['vertex nee_add']} / "
+        f"{call_ms['vertex light_brdf']:.5f} + {call_ms['vertex nee_add']:.5f} against the "
+        f"torch part after K3, less the shadow test, {p23} / {pc23:.5f} ({k23} kernels); "
+        + "; ".join(f"the whole vertex {k}, K3 and the shadow test in it, {w[0][1]} / "
+                    f"{w[1]:.5f} ({w[0][0]:.0f} kernels)" for k, w in whole.items()))
+    src = "monte_carlo_path_tracing_tpu_torch/csrc/vertex.cu"
+    entries = {}
+    for name, plain_ms, plain_call, kernels in (
+            ("vertex emit_rr", p1, pc1, k1), ("vertex light_brdf", p23, pc23, k23),
+            ("vertex nee_add", None, None, None)):
+        b_ms = lanes * VERTEX_BYTES[name] / PEAK_BYTES * 1e3
+        entries[name] = dict(
+            name=name, route="cuda", source=src,
+            replaces="monte_carlo_path_tracing_tpu/integrator/regen.py:893 (the loop's vertex, "
+                     "XLA-fused)", max_abs_err=err, ms=ms[name], call_ms=call_ms[name],
+            plain_ms=plain_ms, plain_call_ms=plain_call, plain_kernels=kernels, bound_ms=b_ms,
+            bound_by="bytes", share=b_ms / ms[name] if ms[name] else None, library_ms=None,
+            vertex_ms=whole["fused"][0][1], vertex_call_ms=whole["fused"][1],
+            plain_vertex_ms=whole["plain"][0][1], plain_vertex_call_ms=whole["plain"][1])
+        log(f"[vertex] {tag}: {name}: {ms[name]} ms on the device, bound {b_ms:.5f} ms "
+            f"({VERTEX_BYTES[name]} bytes a lane), share {entries[name]['share']}")
+    entries["vertex light_brdf"]["plain_covers"] = ["vertex light_brdf", "vertex nee_add"]
+    entries["vertex nee_add"]["plain_in"] = "vertex light_brdf"
+    return entries
+
+
+def phase_vertex(scene):
+    """The regen loop's fused MIS / Arvo vertex against vertex_plain on the
+    card at the main path's shapes: Veach RES^2 x SPP, its loop's
+    VERTEX_ITER-th iteration, cached at LANES_CACHED lanes and uncached at
+    LANES. Every output, K3's uniform and the shadow rays bit for bit; each
+    kernel's device time (CUPTI; its call's by CUDA events) against the
+    torch kernels between the same launches of vertex_plain (emit_rr:
+    before K3; light_brdf and nee_add together: after K3, the shadow test
+    left out), its bound and share. The entries are the cached ones, each
+    with its uncached numbers."""
+    sc = with_res(scene, RES, RES)
+    cfg = main_cfg()
+    entries = _vertex_case(sc, cfg, LANES_CACHED, True)
+    for name, e in _vertex_case(sc, cfg, LANES, False).items():
+        entries[name]["at_32768"] = {k: e[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                                      "share")}
+    return list(entries.values())
 
 
 def phase_end_to_end(scene, cached: bool):
@@ -1043,7 +1352,7 @@ def phase_end_to_end(scene, cached: bool):
     ref_c, ref_r = (REF_CHECKSUM_CACHED, REF_RAYS_CACHED) if cached else (REF_CHECKSUM, REF_RAYS)
     bound_c, bound_r = (CHECKSUM_GAP_CACHED, RAYS_GAP_CACHED) if cached else (CHECKSUM_GAP,
                                                                               RAYS_GAP)
-    want = list(KERNELS) if cached else UNCULLED
+    want = list(KERNELS) if cached else UNCULLED + FUSED
     reset_counters()
     res = render_image_regen(with_res(scene, RES, RES), cfg, lanes=lanes)
     launches = counters()
@@ -1111,7 +1420,8 @@ def phase_fixed_depth(scene, kernels):
         f"of {RES * RES} pixels {n_fine} beyond rtol 1e-4 / atol 1e-5, {n_div} beyond rtol "
         f"1e-2 / atol 1e-3 (bound {FD_PIXEL_SHARE:.0%})")
     assert all(launches[k] > 0 for k in UNCULLED), f"K1-K3 / K6 did not launch: {launches}"
-    assert all(launches[k] == 0 for k in CULLED), f"a culled kernel ran: {launches}"
+    assert all(launches[k] == 0 for k in CULLED + FUSED), \
+        f"a culled or fused kernel ran: {launches}"
     assert all(launches[k] == eager_launches[k] for k in UNCULLED[:3]), \
         f"captured K1-K3 launches {launches} against eager {eager_launches}"
     assert res.rays_traced == eager.rays_traced and n_eager == 0, \
@@ -2249,7 +2559,9 @@ def _compat_ref_mis(scene, e2e):
         f"{e2e['rays']} rays); fb_checksum {checksum:.1f} (phase 6 {e2e['checksum']:.1f}, gap "
         f"{checksum / e2e['checksum'] - 1.0:+.3e}); launches {launches}; K1 on the light accel: "
         f"{light['prepass']} in the prepass, {light['loop']} in the loop")
-    assert all(launches[k] > 0 for k in KERNELS), f"a kernel of the path never launched: {launches}"
+    assert all(launches[k] > 0 for k in UNCULLED + CULLED), \
+        f"a kernel of the path never launched: {launches}"
+    assert all(launches[k] == 0 for k in FUSED), f"ref_mis_weights ran the fused vertex: {launches}"
     assert light["prepass"] > 0 and light["loop"] > 0, f"K1 skipped the light accel: {light}"
 
     small = cfg.replace(width=COMPAT_SMALL, height=COMPAT_SMALL, spp=2)
@@ -2465,7 +2777,7 @@ def phase_bench(name, e2e_uncached, e2e):
     refs = {"cached": (REF_CHECKSUM_CACHED, REF_RAYS_CACHED, CHECKSUM_GAP_CACHED,
                        RAYS_GAP_CACHED, e2e, LANES_CACHED, list(KERNELS)),
             "uncached": (REF_CHECKSUM, REF_RAYS, CHECKSUM_GAP, RAYS_GAP, e2e_uncached, LANES,
-                         UNCULLED)}
+                         UNCULLED + FUSED)}
     for row, (result, extra) in rows.items():
         ref_c, ref_r, bound_c, bound_r, phase, lanes, want = refs[row]
         gap_c, gap_r = _bench_gap(extra, ref_c, ref_r)
@@ -2526,7 +2838,8 @@ def main():
     k6 = walled("rng", phase_rng)
     scene_cpu = load_scene(VEACH, device="cpu")
     scene = with_res(scene_cpu, RES, RES).to("cuda")
-    kernels = walled("kernels", phase_kernels, scene) + walled("culled", phase_culled, scene)
+    kernels = (walled("kernels", phase_kernels, scene) + walled("culled", phase_culled, scene)
+               + walled("vertex", phase_vertex, scene))
     _, e2e_uncached = walled("e2e", phase_end_to_end, scene, False)
     launches, e2e = walled("e2e cached", phase_end_to_end, scene, True)
     profile = walled("profile", phase_profile, scene)

@@ -30,10 +30,13 @@
 // at the card's 64 INT32 lanes an SM. Both sit below the launch floor (the
 // kernel takes ~2.2 us on an H100, chip_smoke.py phase "rng"), so its time
 // measures the launch; the design is the plainest one, a thread an element,
-// the rotations as funnel shifts, each element's key words read once.
+// the rotations as funnel shifts, each element's key words read once. The
+// rounds are threefry.cuh's, which the fused MIS vertex (vertex.cu) shares.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -48,29 +51,6 @@ struct FoldArgs {
   long long dstride[4];
   long long kword;
 };
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int r) { return __funnelshift_l(x, x, r); }
-
-//! threefry2x32 with 20 rounds on (x0, x1) under key (k0, k1): the round
-//! structure of core/rng.py::threefry2x32 (rotations (13, 15, 26, 6) and
-//! (17, 29, 16, 24) in turn, a key injection after every four).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t& x0,
-                                             uint32_t& x1) {
-  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
-  x0 += ks[0];
-  x1 += ks[1];
-#pragma unroll
-  for (int i = 0; i < 5; ++i) {
-    const int r0 = (i & 1) ? 17 : 13, r1 = (i & 1) ? 29 : 15;
-    const int r2 = (i & 1) ? 16 : 26, r3 = (i & 1) ? 24 : 6;
-    x0 += x1; x1 = rotl(x1, r0) ^ x0;
-    x0 += x1; x1 = rotl(x1, r1) ^ x0;
-    x0 += x1; x1 = rotl(x1, r2) ^ x0;
-    x0 += x1; x1 = rotl(x1, r3) ^ x0;
-    x0 += ks[(i + 1) % 3];
-    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
-  }
-}
 
 __global__ void threefry_fold_kernel(const long long* __restrict__ key, const void* data,
                                      int data64, uint32_t scalar, FoldArgs a, long long total,

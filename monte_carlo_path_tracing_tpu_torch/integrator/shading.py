@@ -12,6 +12,13 @@ step, and the prepass calls the light terms and :func:`brdf_step`.
 :func:`scene_context` builds what they read of the scene, once a
 ``regen.RegenJob`` and once a ``wavefront.RayRenderer`` call.
 
+On the card the regen loop's MIS step with the spherical sampler runs as
+three CUDA kernels around K3 and K2 / K5 (:func:`vertex_fused`,
+``ops/vertex_cuda.py``); :func:`vertex` decides from its inputs
+(:func:`takes_fused`), and every other call, the CPU's included, runs
+the torch math (:func:`vertex_plain`), which the kernels equal bit for
+bit.
+
 Where JAX's call sites differ, the difference is an argument: the depth
 (per lane in the regen loop, the bounce index in the fixed-depth step),
 ``row_offset`` of scalar-key draws, ``cull`` of the NEE shadow rays,
@@ -38,7 +45,7 @@ import torch
 
 from monte_carlo_path_tracing_tpu_torch.core import rng, vecmath as vm
 from monte_carlo_path_tracing_tpu_torch.integrator import common
-from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda
+from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda, vertex_cuda
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.sampling import light_spherical, light_uniform, phong
 from monte_carlo_path_tracing_tpu_torch.scene.types import Scene
@@ -237,6 +244,29 @@ class Vertex(NamedTuple):
     nrays: torch.Tensor        # the ray count, the vertex's shadow rays added
 
 
+def takes_fused(c: SceneContext, si, tp, L, kd, depth, prev=None,
+                nee: Callable[..., torch.Tensor] | None = None) -> bool:
+    """Whether a :func:`vertex` call with these inputs, on CUDA tensors,
+    runs the fused kernels (``ops/vertex_cuda.py``): the regen loop's MIS
+    step with the spherical sampler. That takes the MIS estimator and the
+    spherical (Arvo) light sampler, no lights-only accel (``c.light_accel``
+    None: no ref_mis_weights), no light strategy of the caller's (``nee``
+    None: no blocker queue), a per-lane key ``kd`` [N, 2] and depth [N] and
+    ``prev`` (the fixed-depth bounce passes one depth for all lanes), and
+    no input that requires grad. No caller under autograd passes per-lane
+    depths, so the last is a guard for later callers: the kernels have no
+    backward."""
+    cfg = c.cfg
+    n = si.p.shape[0]
+    return (cfg.estimator == EST_MIS and cfg.light_sampler == LS_SPHERICAL
+            and c.light_accel is None and nee is None and prev is not None
+            and kd.shape == (n, 2) and torch.is_tensor(depth) and depth.shape == (n,)
+            and not (torch.is_grad_enabled() and any(
+                torch.is_tensor(t) and t.requires_grad
+                for t in (si.p, si.ns, si.wo, si.kd, si.ks, si.ns_exp, si.emission, tp, L,
+                          c.table, *prev))))
+
+
 def vertex(c: SceneContext, si, hit, tp, L, nrays, kd, depth, prev=None, row_offset=0,
            cull=None, via_point=False,
            nee: Callable[..., torch.Tensor] | None = None) -> Vertex:
@@ -254,7 +284,22 @@ def vertex(c: SceneContext, si, hit, tp, L, nrays, kd, depth, prev=None, row_off
     - mis: RR gates both strategies (main.cpp:429-437), then NEE with its
       shadow rays culled as ``cull`` says, or ``nee(si, ls, alive, tp)``,
       which returns the radiance the light strategy adds (the regen loop's
-      blocker queue)."""
+      blocker queue).
+
+    On CUDA tensors where :func:`takes_fused` holds (the regen loop's MIS
+    / Arvo step on the card) :func:`vertex_fused` computes it, and
+    :func:`vertex_plain`, the same math in torch, everywhere else."""
+    if si.p.is_cuda and takes_fused(c, si, tp, L, kd, depth, prev, nee):
+        return vertex_fused(c, si, hit, tp, L, nrays, kd, depth, prev, cull)
+    return vertex_plain(c, si, hit, tp, L, nrays, kd, depth, prev, row_offset, cull, via_point,
+                        nee)
+
+
+def vertex_plain(c: SceneContext, si, hit, tp, L, nrays, kd, depth, prev=None, row_offset=0,
+                 cull=None, via_point=False,
+                 nee: Callable[..., torch.Tensor] | None = None) -> Vertex:
+    """:func:`vertex` in torch ops, on any device and under autograd: the
+    plain version of :func:`vertex_fused`."""
     cfg, est = c.cfg, c.cfg.estimator
     L = emission(c, si, hit, tp, L, depth, prev)
     alive = hit & ~si.is_light
@@ -279,3 +324,20 @@ def vertex(c: SceneContext, si, hit, tp, L, nrays, kd, depth, prev=None, row_off
     bs, alive, tp = brdf_step(c, kd, si, alive, tp, 1.0 if est == EST_MIS else w_rr, wsum,
                               row_offset, via_point)
     return Vertex(L, alive, tp, bs, wsum, nrays)
+
+
+def vertex_fused(c: SceneContext, si, hit, tp, L, nrays, kd, depth, prev, cull=None) -> Vertex:
+    """:func:`vertex` of the MIS estimator with the spherical sampler, per-lane
+    keys and depths, on CUDA tensors, as three kernels (``ops/vertex_cuda.py``)
+    around K3's light pick and K2 / K5's shadow test: :func:`vertex_plain`'s
+    values bit for bit, its 12 draws made inside the kernels."""
+    pb, prev_p, prev_ns, prev_w = prev
+    e = vertex_cuda.emit_rr(hit, si.is_light, si.light_idx, si.emission, tp, L, depth, pb, prev_p,
+                            prev_ns, prev_w, c.table, kd, nrays, c.cfg.rr_prob)
+    lidx, wsum = arvo_cuda.arvo_select(c.consts, si.p, si.ns, e.u)                   # K3
+    s = vertex_cuda.light_brdf(kd, lidx, wsum, si.p, si.ns, si.wo, si.kd, si.ks, si.ns_exp,
+                               e.alive, e.tp, c.table, e.nrays, c.cfg.branch_pdf_compat)
+    blocked = ops_intersect.occluded(c.accel, si.p, s.wl, s.dist, si.tri_id, cull=cull)  # K2 / K5
+    L = vertex_cuda.nee_add(e.L, e.tp, s.contrib, blocked)
+    bs = phong.BsdfSample(wi=s.wi, pdf=s.pdf, is_specular=s.spec)
+    return Vertex(L, s.alive, s.tp, bs, wsum, e.nrays)

@@ -4,8 +4,9 @@ nvcc compiles every source of ``csrc/`` to an object, one process per
 source and all at once, and links them into one shared library with a
 plain C interface, which is loaded with ctypes (no PyTorch headers, so a
 build takes seconds). The library lands in ``build/torch_kernels/<key>/``
-beside the package, keyed by a hash of the sources and flags, so a changed
-source rebuilds and an unchanged one is reused. Only the sources in this
+beside the package, keyed by a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so a changed source or header rebuilds and
+an unchanged tree is reused. Only the sources in this
 checkout are built; a failed build raises with nvcc's output.
 """
 
@@ -19,6 +20,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -49,6 +52,10 @@ SIGNATURES = {
     "mcpt_threefry_fold": (_P, _P, _I, _U, _P, _LL, _P, _P),
     # K6: key, key row stride, word stride, n, start, total, mode, lo, span, out, stream
     "mcpt_threefry_bits": (_P, _LL, _LL, _LL, _ULL, _LL, _I, _F, _F, _P, _P),
+    # The fused MIS vertex (vertex.cu): inputs, sizes and flags, outputs, stream
+    "mcpt_vertex_emit": (_P,) * 12 + (_I, _P, _P, _F, _F, _I) + (_P,) * 6,
+    "mcpt_vertex_light_brdf": (_P,) * 12 + (_I, _I, _I) + (_P,) * 10,
+    "mcpt_vertex_nee_add": (_P, _P, _P, _P, _I, _P),
 }
 
 
@@ -86,8 +93,9 @@ def _sources() -> list[Path]:
 
 
 def build_key() -> str:
+    """The hash of the flags and of every source and header of ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -135,3 +143,25 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry point returned a non-zero cudaError_t."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def check_tensors(name: str, n: int, **tensors) -> torch.device:
+    """Each of ``tensors``, given as (tensor, dtype, shape with -1 for ``n``
+    rows), on one CUDA device, of that dtype and shape and contiguous;
+    returns the device. ``name`` is the wrapper's, for the message."""
+    dev = None
+    for k, (t, dtype, shape) in tensors.items():
+        dev = t.device if dev is None else dev
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: {k} on {t.device}: the kernel takes CUDA tensors")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {k} must be {dtype}, got {t.dtype}")
+        want = tuple(n if s == -1 else s for s in shape)
+        if tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"{name}: {k} must be contiguous {want}, got {tuple(t.shape)}")
+    return dev
+
+
+def stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream, for a C entry point."""
+    return torch.cuda.current_stream(dev).cuda_stream

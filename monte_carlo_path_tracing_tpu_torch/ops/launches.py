@@ -10,7 +10,7 @@ what one captured iteration counted and adds that for each replay
 
 from __future__ import annotations
 
-from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda, intersect_cuda, rng_cuda
+from monte_carlo_path_tracing_tpu_torch.ops import arvo_cuda, intersect_cuda, rng_cuda, vertex_cuda
 
 #: Name -> the wrapper whose ``launches`` counts the kernel's launches.
 KERNELS = {
@@ -20,6 +20,9 @@ KERNELS = {
     "K4 nearest_hit_culled": intersect_cuda.nearest_hit_culled,
     "K5 occluded_culled": intersect_cuda.occluded_culled,
     "K6 threefry": rng_cuda.threefry,
+    "vertex emit_rr": vertex_cuda.emit_rr,
+    "vertex light_brdf": vertex_cuda.light_brdf,
+    "vertex nee_add": vertex_cuda.nee_add,
 }
 
 #: Name -> (wrapper, attribute) of every counter: the kernels' launches,

@@ -6,7 +6,9 @@ pixel_grad, recover_materials, and the sharded regeneration render at
 world size 1 on NCCL (one-shot, and a renderer's job across launches);
 utils.profiling.device_trace's trace of K1; the
 regeneration loop captured as a CUDA graph against the eager loop, and a
-render_image_regen job's replayed launches against eager launches.
+render_image_regen job's replayed launches against eager launches; the
+loop's fused MIS vertex (ops/vertex_cuda.py) against its torch math, and
+the kernels of one replay of the captured loop iteration.
 
 Needs an NVIDIA GPU: every test is marked ``cuda`` and skips without one.
 This file imports no JAX, so it runs where only PyTorch is installed:
@@ -15,6 +17,7 @@ This file imports no JAX, so it runs where only PyTorch is installed:
 """
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -22,7 +25,7 @@ import pytest
 import torch
 
 from monte_carlo_path_tracing_tpu_torch.ops import _build, arvo_cuda, intersect_cuda, launches
-from monte_carlo_path_tracing_tpu_torch.ops import rng_cuda
+from monte_carlo_path_tracing_tpu_torch.ops import rng_cuda, vertex_cuda
 from monte_carlo_path_tracing_tpu_torch.ops import intersect as ops_intersect
 from monte_carlo_path_tracing_tpu_torch.ops import intersect_ref
 from monte_carlo_path_tracing_tpu_torch.core import rng
@@ -30,7 +33,7 @@ from monte_carlo_path_tracing_tpu_torch.diff import grad as dgrad
 from monte_carlo_path_tracing_tpu_torch.diff.grad import pixel_grad
 from monte_carlo_path_tracing_tpu_torch.diff.inverse import recover_materials
 from monte_carlo_path_tracing_tpu_torch.integrator import graph as graph_mod
-from monte_carlo_path_tracing_tpu_torch.integrator import regen, wavefront
+from monte_carlo_path_tracing_tpu_torch.integrator import regen, shading, wavefront
 from monte_carlo_path_tracing_tpu_torch.render.camera import generate_rays
 from monte_carlo_path_tracing_tpu_torch.render.renderer import render_image, render_image_regen
 from monte_carlo_path_tracing_tpu_torch.scene import load_scene
@@ -783,18 +786,20 @@ def test_bathroom_auto_card_matches_cpu(dev):
     """Bathroom (29,596 triangles) at 64^2 with the default accel="auto":
     on the card the loop's traces run through K4 / K5 (launches beyond the
     prepass's three: the warm-up's and the render's camera fans and one
-    shadow batch), never K1 / K2; the CPU runs the plain culled versions.
+    shadow batch), never K1 / K2, and its vertex through the fused kernels;
+    the CPU runs the plain culled versions and the torch vertex.
     Ray counts to 0.1%, at most 1% of pixels diverged beyond rtol 1e-2 /
     atol 1e-3."""
     sc = _scene("bathroom", 64)
     cfg = RenderConfig(width=64, height=64, spp=1, estimator="mis", seed=3, max_depth=3)
     kernels = [intersect_cuda.nearest_hit, intersect_cuda.occluded,
-               intersect_cuda.nearest_hit_culled, intersect_cuda.occluded_culled]
+               intersect_cuda.nearest_hit_culled, intersect_cuda.occluded_culled,
+               vertex_cuda.emit_rr]
     a = render_image_regen(sc, cfg, lanes=4096)
     counts = [k.launches for k in kernels]
     b = render_image_regen(sc.to(dev), cfg, lanes=4096)
-    k1, k2, k4, k5 = (k.launches - n for k, n in zip(kernels, counts))
-    assert k1 == k2 == 0 and k4 > 2 and k5 > 1, (k1, k2, k4, k5)
+    k1, k2, k4, k5, fused = (k.launches - n for k, n in zip(kernels, counts))
+    assert k1 == k2 == 0 and k4 > 2 and k5 > 1 and fused > 1, (k1, k2, k4, k5, fused)
     assert abs(a.rays_traced - b.rays_traced) <= a.rays_traced // 1000
     diverged = ~np.isclose(b.image, a.image, rtol=1e-2, atol=1e-3).all(-1)
     assert int(diverged.sum()) <= max(2, diverged.size // 100)
@@ -994,6 +999,7 @@ def test_captured_loop_matches_eager(dev, cached):
     np.testing.assert_allclose(g[0], e[0], rtol=2e-4, atol=1e-5)
     assert g[3] == e[3]
     assert g[3]["K6 threefry"] > 0 and g[3]["K1 nearest_hit"] == g[2]
+    assert all(g[3][k] == g[2] for k in FUSED)     # the fused vertex, once an iteration
 
 
 def _veach_prepass(dev, graph, deterministic=False, **kw):
@@ -1112,6 +1118,7 @@ def test_captured_render_image_matches_eager(dev, estimator):
     np.testing.assert_allclose(g.image, e.image, rtol=2e-4, atol=1e-5)
     assert gl == el and gl["K1 nearest_hit"] > 8
     assert gl["K4 nearest_hit_culled"] == gl["K5 occluded_culled"] == 0
+    assert all(gl[k] == 0 for k in FUSED)           # the fixed-depth bounce: torch math
 
 
 @pytest.mark.parametrize("cached", [True, False])
@@ -1247,3 +1254,162 @@ def test_captured_ray_renderer_scalar_key_row_offset(dev):
         assert gr == er and np.isfinite(gL).all()
         np.testing.assert_allclose(gL, eL, rtol=2e-4, atol=1e-5)
     assert gl == el and gl["K1 nearest_hit"] > 2
+
+
+#: The fused MIS vertex's launch counters (ops/vertex_cuda.py).
+FUSED = ("vertex emit_rr", "vertex light_brdf", "vertex nee_add")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as integers, so that equality is bit equality (NaN included)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _loop_vertex_pair(dev, monkeypatch, name, wh, lanes, iters, cached=True, **kw):
+    """The cached route's seeded loop on the card (``name`` at wh^2, 2 spp,
+    MIS + Arvo, accel "auto"; ``kw`` changes the configuration), or the
+    uncached loop, run eagerly to its ``iters``-th iteration,
+    whose shading.vertex call runs twice on the same inputs: fused (what
+    shading.vertex chose) and shading.vertex_plain (torch on the card).
+    Each run's K3 uniforms, shadow rays (origin, direction, length, cull,
+    blocked) and launches are recorded: (fused, plain), each (Vertex,
+    uniforms, shadow rays, launches)."""
+    sc = _scene(name, wh).to(dev)
+    cfg = RenderConfig(width=wh, height=wh, spp=2, estimator="mis", max_depth=16, seed=3, **kw)
+    key = rng.base_key(3, device=dev)
+    seeds, total = None, 2 * wh * wh
+    if cached:
+        seeds, total, _, _ = regen.primary_prepass(sc, cfg, key, wh * wh, 2, 2)
+    st, iterate, _ = regen.regen_loop(sc, cfg, key, wh * wh, total, lanes=lanes,
+                                      seed_mode=seeds)
+    real_vertex, real_occluded, real_select = (shading.vertex, ops_intersect.occluded,
+                                               arvo_cuda.arvo_select)
+    rec, out = {}, []
+
+    def occluded(*a, **kw):
+        blocked = real_occluded(*a, **kw)
+        rec["shadow"] = [t.clone() for t in a[1:5]] + [kw.get("cull"), blocked.clone()]
+        return blocked
+
+    class Select:
+        """K3 recording its uniforms; the wrapper's counters stay its own."""
+        launches = property(lambda self: real_select.launches,
+                            lambda self, v: setattr(real_select, "launches", v))
+        picks = property(lambda self: real_select.picks,
+                         lambda self, v: setattr(real_select, "picks", v))
+
+        def __call__(self, C, x1, n, u):
+            rec["u"] = u.clone()
+            return real_select(C, x1, n, u)
+
+    def run(fn, *a, **kw):
+        before = launches.counts()
+        v = fn(*a, **kw)
+        torch.cuda.synchronize()
+        after = launches.counts()
+        out.append((v, rec.pop("u"), rec.pop("shadow"), {k: after[k] - before[k] for k in after}))
+        return v
+
+    def spy(*a, **kw):
+        rec["calls"] = rec.get("calls", 0) + 1
+        if rec["calls"] != iters:
+            return real_vertex(*a, **kw)
+        v = run(real_vertex, *a, **kw)
+        run(shading.vertex_plain, *a, **kw)
+        return v
+
+    monkeypatch.setattr(shading, "vertex", spy)
+    monkeypatch.setattr(ops_intersect, "occluded", occluded)
+    monkeypatch.setattr(arvo_cuda, "arvo_select", Select())
+    for _ in range(iters):
+        iterate(st)
+    assert len(out) == 2
+    return out
+
+
+@pytest.mark.parametrize("name,wh,lanes,iters,cached,kw", [
+    ("veach-mis", 64, 4096, 4, True, {}), ("bathroom", 64, 4096, 3, True, {}),
+    ("veach-mis", 64, 2048, 3, False, {}),
+    ("veach-mis", 64, 4096, 3, True, {"branch_pdf_compat": True}),
+])
+def test_fused_vertex_matches_plain(dev, monkeypatch, name, wh, lanes, iters, cached, kw):
+    """The loop's MIS / Arvo vertex a few iterations in (cached; uncached,
+    with depth-0 lanes; under branch_pdf_compat), fused (three kernels
+    around K3 and K2, or K5 on bathroom's culled loop) against
+    shading.vertex_plain's torch math on the card, on the same inputs: bit
+    for bit in L, tp, alive, the BRDF sample (wi, pdf, lobe), wsum, the
+    shadow rays and what blocks them, and the ray count. K3's uniform is
+    K6's draw (the plain path draws it through K6) bit for bit; the other
+    draws feed roulette, the light warp and the BRDF sample, so the equal
+    outputs hold them too. The fused run launches each fused kernel once
+    and K6 never; the plain run no fused kernel and K6 12 times."""
+    (fv, fu, fs, fl), (pv, pu, ps, pl) = _loop_vertex_pair(dev, monkeypatch, name, wh, lanes,
+                                                            iters, cached, **kw)
+    assert torch.equal(_bits(fu), _bits(pu))
+    for f in ("L", "alive", "tp", "wsum"):
+        assert torch.equal(_bits(getattr(fv, f)), _bits(getattr(pv, f))), f
+    for f in ("wi", "pdf", "is_specular"):
+        assert torch.equal(_bits(getattr(fv.bs, f)), _bits(getattr(pv.bs, f))), f
+    assert int(fv.nrays) == int(pv.nrays)
+    for i, (a, b) in enumerate(zip(fs, ps)):
+        assert (a == b if not torch.is_tensor(a) else torch.equal(_bits(a), _bits(b))), i
+    assert fs[4] is (name == "bathroom") and bool(fv.alive.any())
+    assert all(fl[k] == 1 for k in FUSED) and fl["K6 threefry"] == 0
+    assert all(pl[k] == 0 for k in FUSED) and pl["K6 threefry"] == 12
+    assert fl["K3 arvo_select"] == pl["K3 arvo_select"] == 1
+
+
+def test_cached_loop_fused_matches_eager_torch_loop(dev, monkeypatch):
+    """In torch's deterministic mode the cached route with the fused vertex,
+    prepass and loop captured, gives the eager route with the torch vertex
+    (shading.vertex_plain, graph=False) bit for bit: framebuffer, rays and
+    iterations."""
+    sc = _scene("veach-mis", 64).to(dev)
+    cfg = RenderConfig(width=64, height=64, spp=4, estimator="mis", max_depth=16, seed=3)
+    key = rng.base_key(3, device=dev)
+    out = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for graph in (None, False):
+            if graph is False:
+                monkeypatch.setattr(shading, "vertex", shading.vertex_plain)
+            before = launches.counts()
+            fb, rays, iters, _ = regen.render_regen_cached(sc, cfg, key, 4096, 4, 4, lanes=4096,
+                                                           graph=graph)
+            after = launches.counts()
+            out.append((fb.cpu().numpy(), int(rays), iters,
+                        {k: after[k] - before[k] for k in after}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (gfb, gr, gi, gl), (efb, er, ei, el) = out
+    assert gr == er and gi == ei and np.array_equal(gfb, efb)
+    assert all(gl[k] == gi for k in FUSED) and all(el[k] == 0 for k in FUSED)
+
+
+def test_loop_replay_launches(dev):
+    """One replay of the captured cached MIS loop iteration (Veach 128^2,
+    4 spp, 8,192 lanes) traced by torch.profiler: at most 170 kernels, each
+    fused kernel once and K6 three times (the loop's key folds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sc = _scene("veach-mis", 128).to(dev)
+    cfg = RenderConfig(width=128, height=128, spp=4, estimator="mis", max_depth=16, seed=3)
+    key = rng.base_key(3, device=dev)
+    seeds, total, _, _ = regen.primary_prepass(sc, cfg, key, 128 * 128, 4, 4)
+    st, iterate, _ = regen.regen_loop(sc, cfg, key, 128 * 128, total, lanes=8192,
+                                      seed_mode=seeds)
+    step = functools.partial(iterate, st)
+    before = launches.counts()
+    graph_mod.GraphedLoop(step, dev).warm_up()
+    captured = graph_mod.CapturedStep(step)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        captured.replay()
+        torch.cuda.synchronize()
+    launches.restore(before)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert all(captured.delta[k] == 1 for k in FUSED), captured.delta
+    assert captured.delta["K6 threefry"] == 3, captured.delta
+    for k in ("mis_vertex_emit", "mis_vertex_light_brdf", "mis_vertex_nee_add"):
+        assert sum(k in n for n in names) == 1, k
+    assert 0 < len(names) <= 170, len(names)

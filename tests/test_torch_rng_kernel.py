@@ -246,3 +246,18 @@ def test_cpu_draws_never_load_the_library(monkeypatch):
     rng.randint(key, (5,), 0, 10)
     rng.pick_weighted(keys, torch.ones(4), 16)
     assert rng_cuda.threefry.launches == n0
+
+
+def test_build_key_covers_the_shared_header(monkeypatch, tmp_path):
+    """The threefry rounds live in csrc/threefry.cuh, which K6 (rng.cu) and
+    the fused vertex (vertex.cu) include: a change to the header changes
+    the build's key, so the library is rebuilt, as for a change to a
+    source."""
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    key = _build.build_key()
+    header = tmp_path / "threefry.cuh"
+    assert b"threefry2x32" in header.read_bytes()
+    header.write_bytes(header.read_bytes() + b"\n")
+    assert _build.build_key() != key
