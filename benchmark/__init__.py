@@ -6,6 +6,9 @@ One command runs one cell of ``BENCHMARK.json`` once:
 
 Configurations (``configs/*.json``), traffic mixes (``traffic/*.json``)
 and metrics (``metrics/*.py``) are found by the names ``BENCHMARK.json``
-gives them; ``reference/`` is the plain path tracer that decides
-``correct``. Nothing here imports JAX or the JAX package.
+gives them, launchers (``launchers/*.py``) by the name a mix gives, and
+the kind of ``correct`` check (``checks/*.py``) by the name a
+configuration's ``check`` block gives, ``image`` where it gives none;
+``reference/`` is the plain path tracer that the ``image`` kind compares
+with. Nothing here imports JAX or the JAX package.
 """

@@ -1,4 +1,6 @@
-"""The comparison that decides ``correct``.
+"""The comparison of the ``image`` check kind (``checks/image.py``), the
+kind of every configuration whose ``check`` block names none; another kind
+is its own module in ``checks/``, found by the name a configuration gives.
 
 A run's image is the summed radiance of every spp round that the window's
 last job (single card) or all its launches (sharded) rendered. A sample of

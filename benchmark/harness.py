@@ -2,9 +2,13 @@
 
 ``BENCHMARK.json`` names each cell's configuration (its ``file``) and its
 traffic mix (``traffic/<mix>.json`` beside this module), and every metric
-by the module ``metrics/<name>.py``. :func:`resolve` finds the three for
-a workload; nothing here names a configuration, mix or metric, so a later
-change adds one with files and an entry alone.
+by the module ``metrics/<name>.py``. A mix names its launcher
+(``launchers/<launcher>.py``), and a configuration's ``check`` block the
+kind of its ``correct`` check (``checks/<kind>.py``; ``image`` where it
+names none). :func:`resolve` finds a workload's configuration, mix and
+metrics, :func:`check_module` its check kind and :func:`metric_module` a
+metric; nothing here names a configuration, mix, launcher, check kind or
+metric, so a later change adds one with files and an entry alone.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ class Cell:
     mix: dict               # the traffic mix's file, as loaded
     end_to_end: list        # this cell's BENCHMARK.json metric entries
     per_layer: list
+    root: str = ROOT        # the checkout whose files the cell was resolved from
 
 
 @dataclasses.dataclass
@@ -65,16 +70,35 @@ def resolve(workload: str, root: str = ROOT) -> Cell:
         mix = json.load(f)
     return Cell(w["name"], int(w["chips"]), config, mix,
                 [m for m in bench["end_to_end"] if _in_cell(m, workload)],
-                [m for m in bench["per_layer"] if _in_cell(m, workload)])
+                [m for m in bench["per_layer"] if _in_cell(m, workload)], root)
+
+
+def _load(folder: str, name: str, root: str):
+    """``<root>/benchmark/<folder>/<name>.py``, loaded from its path."""
+    path = os.path.join(root, "benchmark", folder, name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no module {name!r} in benchmark/{folder}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(f"benchmark.{folder}.{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metric_module(name: str, root: str = ROOT):
     """``<root>/benchmark/metrics/<name>.py``, loaded."""
-    path = os.path.join(root, "benchmark", "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(f"benchmark.metrics.{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return _load("metrics", name, root)
+
+
+def check_kind(config: dict) -> str:
+    """The kind of ``correct`` check a configuration names (``check.kind``),
+    ``image`` where it names none."""
+    return config.get("check", {}).get("kind", "image")
+
+
+def check_module(kind: str, root: str = ROOT):
+    """``<root>/benchmark/checks/<kind>.py``, loaded: its ``judge`` decides
+    ``correct`` and its ``control`` gives the control's readings."""
+    return _load("checks", kind, root)
 
 
 def read_metrics(entries: list, window: Window, root: str = ROOT) -> dict:

@@ -1,6 +1,6 @@
-"""What both launchers share: the program's configuration from a cell's
-files, the timing of set-up by part, the traced sub-window, and the
-observer of the regeneration entry points."""
+"""What the launchers share: what a run hands its check, the program's
+configuration from a cell's files, the timing of set-up by part, the
+traced sub-window, and the observer of the regeneration entry points."""
 
 from __future__ import annotations
 
@@ -17,17 +17,21 @@ from benchmark.harness import ROOT
 
 @dataclasses.dataclass
 class Measured:
-    """A launcher's run: the window, the image to check (summed radiance
-    [n_pix, 3] on the host, pixel order), the spp rounds it holds (see
-    ``check.round_keys``), the logical rays of the window's launches, and
-    the device record."""
+    """A launcher's run: the window, and what the configuration's check
+    kind reads of it (``checks/<kind>.py``). Every launcher gives the
+    window, the logical rays of the window's launches and the device record.
+    The ``image`` kind reads the image (summed radiance [n_pix, 3] on the
+    host, pixel order), the spp rounds it holds (see ``check.round_keys``)
+    and the triangle count; another kind reads what its launchers put in
+    ``extra``."""
 
     window: object
-    image: object
-    rounds: list
-    rays: int
-    device: dict
-    num_tris: int
+    image: object = None
+    rounds: list | None = None
+    rays: int = 0
+    device: dict = dataclasses.field(default_factory=dict)
+    num_tris: int | None = None
+    extra: dict = dataclasses.field(default_factory=dict)
 
 
 class SetupClock:

@@ -16,8 +16,14 @@ Intersection is Moller-Trumbore, each ray-triangle test four bilinear
 forms of the ray's features [o, d, o x d, 1]: one matrix product of the
 rays' features and the triangles' coefficients (TF32 off), then the
 accept rules |det| > 1e-9, u, v >= 0, u + v <= |det|, t > 1e-4 |det| and
-the excluded triangle id. A shadow ray is blocked by an accepted hit below
-its length times (1 - 1e-3).
+the excluded triangle id. The nearest accepted hit wins; of hits at the
+same t, the triangle first in the order of the 3 x 10-bit Morton codes of
+the triangles' centroids over the scene's bounds, as in the JAX package's
+accel. Such ties are real: a ray that meets the edge two triangles share
+at a point their forms round alike, as camera rays through pixel centres
+meet the edges of cornell's axis-aligned box, sees the same t from both,
+and the two are different surfaces. A shadow ray is blocked by an
+accepted hit below its length times (1 - 1e-3).
 """
 
 from __future__ import annotations
@@ -61,15 +67,39 @@ def reflect(w, n):
 # ----------------------------------------------------------- intersection
 
 class Accel(NamedTuple):
-    """Triangle coefficients in blocks: each [10, 4 * nb], columns det, u,
-    v and t numerators of nb triangles, and their first id."""
+    """Triangle coefficients in blocks, the triangles in Morton order: each
+    [10, 4 * nb], columns det, u, v and t numerators of nb triangles, and
+    the triangles' ids [nb]."""
 
     blocks: list
-    starts: list
+    ids: list
+
+
+def _spread10(x):
+    """The 10 low bits of x to every third bit of 30."""
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def morton_order(v0, e1, e2):
+    """Triangle ids [T] sorted by the Morton code of the centroid,
+    quantized to 1024 steps an axis over the bounds of every vertex, in
+    float32; equal codes keep id order."""
+    v0, e1, e2 = v0.float(), e1.float(), e2.float()
+    c = v0 + (e1 + e2) / 3.0
+    lo = torch.amin(torch.minimum(v0, torch.minimum(v0 + e1, v0 + e2)), dim=0)
+    hi = torch.amax(torch.maximum(v0, torch.maximum(v0 + e1, v0 + e2)), dim=0)
+    q = torch.clamp(((c - lo) / torch.clamp(hi - lo, min=1e-20) * 1023.0).to(torch.int64),
+                    0, 1023)
+    code = _spread10(q[:, 0]) | (_spread10(q[:, 1]) << 1) | (_spread10(q[:, 2]) << 2)
+    return torch.argsort(code, stable=True)
 
 
 def build_accel(sc: RefScene, block: int = 8192) -> Accel:
-    v0, e1, e2 = sc.v0, sc.e1, sc.e2
+    order = morton_order(sc.v0, sc.e1, sc.e2)
+    v0, e1, e2 = sc.v0[order], sc.e1[order], sc.e2[order]
     W = torch.zeros((sc.num_tris, 10, 4), dtype=v0.dtype, device=v0.device)
     n = cross(e1, e2)
     W[:, 3:6, 0] = cross(e2, e1)
@@ -79,12 +109,12 @@ def build_accel(sc: RefScene, block: int = 8192) -> Accel:
     W[:, 6:9, 2] = -e1
     W[:, 0:3, 3] = n
     W[:, 9, 3] = -dot(v0, n)
-    blocks, starts = [], []
+    blocks, ids = [], []
     for b0 in range(0, sc.num_tris, block):
         Wb = W[b0:b0 + block]                               # [nb, 10, 4]
         blocks.append(Wb.permute(1, 2, 0).reshape(10, -1).contiguous())
-        starts.append(b0)
-    return Accel(blocks, starts)
+        ids.append(order[b0:b0 + block])
+    return Accel(blocks, ids)
 
 
 def _features(ro, rd):
@@ -92,16 +122,15 @@ def _features(ro, rd):
     return torch.cat([ro, rd, cross(ro, rd), one], dim=1)
 
 
-def _accepted(g, Wb, b0, excl):
+def _accepted(g, Wb, ids, excl):
     """(det, u and v numerators, sign-fixed t numerator, |det|, accepted) of
-    rays g against one block."""
+    rays g against one block of triangles ``ids``."""
     nb = Wb.shape[1] // 4
     Y = g @ Wb
     det, un, vn, tn = Y[:, :nb], Y[:, nb:2 * nb], Y[:, 2 * nb:3 * nb], Y[:, 3 * nb:]
     s = torch.sign(det)
     adet = det.abs()
     up, vp = un * s, vn * s
-    ids = torch.arange(b0, b0 + nb, device=g.device)
     ok = ((adet > DET_EPS) & (up >= 0.0) & (vp >= 0.0) & (up + vp <= adet)
           & (tn * s > T_EPS * adet) & (ids[None, :] != excl[:, None]))
     return det, un, vn, tn * s, adet, ok
@@ -120,8 +149,8 @@ def nearest(acc: Accel, ro, rd, excl, rows: int = 8192):
         bt = torch.full((g.shape[0],), BIG_T, dtype=dt, device=dev)
         bi = torch.full((g.shape[0],), -1, dtype=torch.int64, device=dev)
         bu, bv = torch.zeros_like(bt), torch.zeros_like(bt)
-        for Wb, b0 in zip(acc.blocks, acc.starts):
-            det, un, vn, tp, adet, ok = _accepted(g, Wb, b0, excl[sl])
+        for Wb, ids in zip(acc.blocks, acc.ids):
+            det, un, vn, tp, adet, ok = _accepted(g, Wb, ids, excl[sl])
             t = torch.where(ok, tp / torch.where(ok, adet, torch.ones_like(adet)),
                             torch.full_like(tp, BIG_T))
             tmin, col = t.min(dim=1)
@@ -129,7 +158,7 @@ def nearest(acc: Accel, ro, rd, excl, rows: int = 8192):
             d = det.gather(1, col[:, None])[:, 0]
             inv = 1.0 / torch.where(d.abs() > 0, d, torch.ones_like(d))
             bt = torch.where(better, tmin, bt)
-            bi = torch.where(better, b0 + col, bi)
+            bi = torch.where(better, ids[col], bi)
             bu = torch.where(better, un.gather(1, col[:, None])[:, 0] * inv, bu)
             bv = torch.where(better, vn.gather(1, col[:, None])[:, 0] * inv, bv)
         t_out[sl], i_out[sl], u_out[sl], v_out[sl] = bt, bi, bu, bv
@@ -143,8 +172,8 @@ def occluded(acc: Accel, ro, rd, t_max, excl, rows: int = 8192):
     for r0 in range(0, ro.shape[0], rows):
         sl = slice(r0, r0 + rows)
         g = _features(ro[sl], rd[sl])
-        for Wb, b0 in zip(acc.blocks, acc.starts):
-            _, _, _, tp, adet, ok = _accepted(g, Wb, b0, excl[sl])
+        for Wb, ids in zip(acc.blocks, acc.ids):
+            _, _, _, tp, adet, ok = _accepted(g, Wb, ids, excl[sl])
             out[sl] |= (ok & (tp < lim[sl, None] * adet)).any(dim=1)
     return out
 

@@ -4,12 +4,14 @@
 
 Set-up (imports, CUDA, the port's kernel library, the scene, one warm
 launch of the cell's shapes) is timed by part; then the window measures
-for ``--seconds``; then the plain reference re-renders a sample of the
-window's pixels and decides ``correct``. Standard output ends with one
-JSON line (the cell's end-to-end metrics with ``--trace 0``, its per-layer
-metrics with ``--trace 1``); an earlier line starting ``# setup`` gives
-set-up by part and the reference's seconds, and standard error ends with
-each number compared beside its limit.
+for ``--seconds`` through the mix's launcher (``launchers/<name>.py``);
+then the check of the configuration's kind (``checks/<kind>.py``; the
+``image`` kind re-renders a sample of the window's pixels with the plain
+reference) decides ``correct``. Standard output ends with one JSON line
+(the cell's end-to-end metrics with ``--trace 0``, its per-layer metrics
+with ``--trace 1``); an earlier line starting ``# setup`` gives set-up by
+part, the check's seconds and its kind's diagnostics, and standard error
+ends with each number compared beside its limit.
 
 Exit codes: 0 with a result; 2 without the cards the cell asks for; 3
 when JAX or the JAX package was loaded; any other error propagates.
@@ -55,35 +57,16 @@ def window_run(cell, seed: int, seconds: float, traced: bool, device: str = "cud
 
 
 def judge(cell, m, seed: int, device: str = "cuda", dtype=None):
-    """(compared numbers, checks, reference rays, pixels) of a window's
-    image against the plain reference, computed in ``dtype`` (float32 unless
-    given: the control puts bfloat16 here, in the program's place)."""
-    import numpy as np
-    import torch
-
-    from benchmark import check
-
-    c = cell.config
-    pixels = check.sample_pixels(c["width"] * c["height"], c["check"]["pixels"], seed)
-    ref, ref_rays = check.reference(c, harness.ROOT, seed, m.rounds, pixels, device)
-    w = m.window
-    prog = m.image[pixels]
-    prog_rpp = m.rays / sum(p for _, _, p in w.launches)
-    ref_rpp = ref_rays / (len(pixels) * len(m.rounds))
-    if dtype is not None and dtype != torch.float32:
-        prog, low_rays = check.reference(c, harness.ROOT, seed, m.rounds, pixels, device, dtype)
-        prog_rpp = low_rays / (len(pixels) * len(m.rounds))
-    numbers = check.compare(prog, ref, prog_rpp, ref_rpp)
-    elapsed = w.launches[-1][1] - w.start
-    checks = check.checks(numbers, c["check"]["limits"], float(np.sum(m.image)),
-                          m.rays / elapsed / cell.chips, m.num_tris)
-    return numbers, checks, ref_rays, pixels
+    """(compared numbers, checks, reference rays, pixels) of an ``image``
+    kind cell's window: the interface from before check kinds, which
+    ``scripts/span_account.py`` reads. The harness calls its kind's judge."""
+    return harness.check_module("image", cell.root).compare(cell, m, seed, device, dtype)
 
 
 def measure(cell, seed: int, seconds: float, traced: bool, device: str = "cuda",
             t_start: float = T_START):
     """(result line, checks, diagnostics) of one run of ``cell``: the
-    window, then the check against the plain reference on ``device``."""
+    window, then the check of the configuration's kind on ``device``."""
     import numpy as np
 
     from benchmark import check
@@ -91,12 +74,13 @@ def measure(cell, seed: int, seconds: float, traced: bool, device: str = "cuda",
 
     m = window_run(cell, seed, seconds, traced, device, t_start)
     t_ref = time.perf_counter()
-    _, checks, ref_rays, pixels = judge(cell, m, seed, device)
+    kind = harness.check_module(harness.check_kind(cell.config), cell.root)
+    _, checks, kind_diag = kind.judge(cell, m, seed, device)
     correct = check.passed(checks)
     ref_s = time.perf_counter() - t_ref
 
     w = m.window
-    metrics = harness.read_metrics(cell.per_layer if traced else cell.end_to_end, w)
+    metrics = harness.read_metrics(cell.per_layer if traced else cell.end_to_end, w, cell.root)
     device_rec = dict(m.device)
     extra = None
     if traced:
@@ -105,14 +89,12 @@ def measure(cell, seed: int, seconds: float, traced: bool, device: str = "cuda",
         device_rec["busy_s"] = float(np.mean([t.busy_us() for t in w.traces])) / 1e6
         device_rec["window_s"] = float(np.mean([t.window_us for t in w.traces])) / 1e6
         extra = trace_mod.breakdown(w.traces)
-    paths = sum(p for _, _, p in w.launches)
     lat = sorted((t1 - t0) * 1e3 for t0, t1, _ in w.launches)
     diag = {"launch_ms_min_median_max": [lat[0], lat[len(lat) // 2], lat[-1]],
             "launch_ms": [round((t1 - t0) * 1e3, 1) for t0, t1, _ in w.launches],
             "setup": w.setup_parts, "setup_s": w.setup_s, "reference_s": ref_s,
-            "launches": len(w.launches), "paths": paths, "spp_checked": len(m.rounds),
-            "pixels_checked": len(pixels), "rays": m.rays, "rays_per_path": m.rays / paths,
-            "reference_rays_per_path": ref_rays / (len(pixels) * len(m.rounds))}
+            "launches": len(w.launches), "paths": sum(p for _, _, p in w.launches),
+            **kind_diag}
     line = harness.result_line(correct, len(w.launches), 0, metrics, device_rec, checks, extra)
     return line, checks, diag
 

@@ -22,11 +22,14 @@ def _top_level(code: str) -> set:
 def test_harness_reference_and_metrics_load_no_jax():
     metrics = sorted(f[:-3] for f in os.listdir(os.path.join(harness.ROOT, "benchmark", "metrics"))
                      if f.endswith(".py") and not f.startswith("_"))
+    kinds = sorted(f[:-3] for f in os.listdir(os.path.join(harness.ROOT, "benchmark", "checks"))
+                   if f.endswith(".py") and not f.startswith("_"))
     code = ("import benchmark.run, benchmark.control, benchmark.check, benchmark.trace\n"
             "import benchmark.launchers.single, benchmark.launchers.sharded\n"
             "import benchmark.reference.scene, benchmark.reference.tracer\n"
             "from benchmark import harness\n"
-            f"for m in {metrics!r}: harness.metric_module(m)\n")
+            f"for m in {metrics!r}: harness.metric_module(m)\n"
+            f"for k in {kinds!r}: harness.check_module(k)\n")
     names = _top_level(code)
     assert not names & set(harness.FORBIDDEN), names & set(harness.FORBIDDEN)
     assert "benchmark" in names
@@ -34,7 +37,8 @@ def test_harness_reference_and_metrics_load_no_jax():
 
 def test_the_reference_loads_nothing_of_the_port():
     names = _top_level("import benchmark.reference.scene, benchmark.reference.tracer, "
-                       "benchmark.reference.threefry, benchmark.check")
+                       "benchmark.reference.threefry, benchmark.check\n"
+                       "from benchmark import harness\nharness.check_module('image')")
     assert "monte_carlo_path_tracing_tpu_torch" not in names
     assert not names & set(harness.FORBIDDEN)
 
