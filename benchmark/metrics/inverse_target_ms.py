@@ -1,0 +1,13 @@
+"""diff.inverse: a step's ``inverse.target`` span (the no-grad target
+render) less its ``wavefront.sync`` children (the host's reads of the live
+mask, which ``inverse_sync_ms`` reads), ms a step; averaged over the
+chips."""
+
+from benchmark.metrics import _inverse, _spans
+
+UNIT, BETTER, MOVES = "ms", "lower", "paths_per_s"
+
+
+def read(window):
+    return _inverse.per_step(
+        window, lambda ts: _spans.self_us(ts, "inverse.target", ("wavefront.sync",)), 1e-3)

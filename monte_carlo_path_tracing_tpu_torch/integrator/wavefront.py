@@ -23,7 +23,9 @@ tensors; nothing here culls.
 buffers (:func:`bounce_loop`) where autograd is off, on the triangle
 accel and CUDA tensors, captured once as a CUDA graph and replayed
 across the batches of a render (``integrator/graph.py``; the bounce
-index is a device scalar). Gradients and the grid run the eager loop.
+index is a device scalar). Gradients and the grid run the eager loop,
+:func:`run_loop`, which ``diff.inverse.StepRenders`` captures under
+autograd with every bounce run.
 
 The occluded-blocker recursion (``mis_blocker_compat``) belongs to the
 regeneration renderer. ``estimator="shoot"`` dispatches to
@@ -51,6 +53,7 @@ from monte_carlo_path_tracing_tpu_torch.scene.types import Scene
 from monte_carlo_path_tracing_tpu_torch.utils.config import (
     EST_BRDF, EST_MIS, EST_SHOOT, EST_SPLIT, RenderConfig,
 )
+from monte_carlo_path_tracing_tpu_torch.utils.profiling import span
 
 
 def render_rays(scene: Scene, cfg: RenderConfig, key: torch.Tensor, ro: torch.Tensor,
@@ -94,11 +97,31 @@ def _use_bounce_graph(graph: bool | None, device: torch.device, grad: bool, grid
 def _bounces(max_depth: int, active):
     """The depths the bounce loop runs: at most ``max_depth``, and before
     each after the first a lane alive (``active()``, the live mask: one
-    host read). Stopping early changes no value and no ray count."""
+    host read, a ``wavefront.sync`` span). Stopping early changes no value
+    and no ray count."""
     for d in range(max_depth):
-        if d and not bool(active().any()):
-            return
+        if d:
+            with span("wavefront.sync"):
+                live = bool(active().any())
+            if not live:
+                return
         yield d
+
+
+def run_loop(ctx: shading.SceneContext, key: torch.Tensor, ro: torch.Tensor, rd: torch.Tensor,
+             row_offset: int = 0, early_exit: bool = True) -> dict:
+    """The eager bounce loop of :func:`render_rays` through ``ctx``
+    (``shading.scene_context``): the state after its last bounce, whose
+    ``L`` is the radiance and ``nrays`` the rays traced. With
+    ``early_exit`` False it runs every one of ``cfg.max_depth`` bounces and
+    reads nothing on the host, as a capture of the loop under autograd
+    (``diff.inverse.StepRenders``) needs; the values are the same."""
+    st = _init(ro, rd, ctx.cfg.estimator == EST_MIS)
+    depths = (_bounces(ctx.cfg.max_depth, lambda: st["active"]) if early_exit
+              else range(ctx.cfg.max_depth))
+    for d in depths:
+        st = _bounce(ctx, st, key, d, row_offset)
+    return st
 
 
 class RayRenderer:
@@ -161,10 +184,8 @@ class RayRenderer:
         if captured:
             L, nrays = self._replayed(key, ro, rd)
         else:
-            ctx = shading.scene_context(scene, cfg, self.accel)
-            st = _init(ro, rd, cfg.estimator == EST_MIS)
-            for d in _bounces(cfg.max_depth, lambda: st["active"]):
-                st = _bounce(ctx, st, key, d, self.row_offset)
+            st = run_loop(shading.scene_context(scene, cfg, self.accel), key, ro, rd,
+                          self.row_offset)
             L, nrays = st["L"], st["nrays"]
         nonfinite = (~torch.isfinite(L).all(dim=-1)).sum()
         if cfg.debug_checks:

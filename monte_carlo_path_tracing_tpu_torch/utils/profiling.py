@@ -60,8 +60,9 @@ class PhaseTimer:
         return json.dumps(self.summary(), indent=2)
 
 
-#: The spans of the launch path (name: what it covers). Only these names
-#: are emitted, and only while a torch profiler records.
+#: The spans of the launch path and of the inverse-rendering step (name:
+#: what it covers). Only these names are emitted, and only while a torch
+#: profiler records.
 SPANS = {
     "render.launch": "one timed launch of render_image_regen, up to its on_launch",
     "render.accumulate": "the framebuffer's copy to the host, the add and the mean image",
@@ -77,6 +78,16 @@ SPANS = {
     "graph.capture": "a step's capture and instantiation as a CUDA graph (once a job)",
     "parallel.reduce": "a sharded launch's count all_reduce and its host reads",
     "parallel.gather": "a gather_rows call: the all_gather of every rank's rows",
+    "wavefront.sync": "the fixed-depth bounce loop's host read of the live mask, before each "
+                      "bounce after the first",
+    "inverse.step": "one step of diff.inverse.recover_materials",
+    "inverse.target": "a step's target render from the true materials, without autograd",
+    "inverse.forward": "a step's two renders of the latents under autograd (on CUDA one replay of "
+                       "their graph), and the loss",
+    "inverse.backward": "a step's loss.backward() (on CUDA, the streams' backward graph replayed "
+                        "inside it)",
+    "inverse.update": "a step's frozen-family masks, learning rate and Adam step",
+    "inverse.sync": "a step's host read of the loss",
 }
 
 _NO_SPAN = contextlib.nullcontext()

@@ -825,6 +825,37 @@ def test_recover_materials_card_matches_cpu(dev):
         np.testing.assert_allclose(x.cpu().numpy(), y.numpy(), rtol=0, atol=1e-4)
 
 
+def test_captured_step_renders_match_the_eager_ones(dev):
+    """diff.inverse.StepRenders on the card (cornell 32^2, MIS + Arvo, depth
+    3, 1,024 rays): the captured target and streams against the eager
+    renders, on two steps in turn (so the graphs' input buffers take new
+    keys, rays and latents), and the latents' gradients through the
+    streams' captured backward pass."""
+    from monte_carlo_path_tracing_tpu_torch.diff import inverse
+
+    sc = _scene("cornell", 32).to(dev)
+    cfg = RenderConfig(width=32, height=32, spp=1, estimator="mis", max_depth=3, seed=0)
+    n = 1024
+    captured = inverse.StepRenders(sc, cfg, n, graph=True)
+    eager = inverse.StepRenders(sc, cfg, n, graph=False)
+    assert captured._streams is not None and eager._streams is None
+    for i in range(2):
+        k_step, idx = inverse.step_keys(7, i, n, 32 * 32, dev)
+        ro, rd = generate_rays(sc.camera, idx)
+        lm0 = dgrad.latent_leaves(dgrad.to_latent(sc.materials))
+        lat = [(x + 0.2 * (i + 1)).detach().requires_grad_(True) for x in lm0]
+        out, grads = [], []
+        for r in (captured, eager):
+            t = r.target(k_step, ro, rd)
+            r1, r2 = r.streams(dgrad.LatentMaterials(*lat), k_step, ro, rd)
+            grads.append(torch.autograd.grad(inverse.stream_loss(t, r1, r2), lat))
+            out.append((t, r1.detach().clone(), r2.detach().clone()))
+        for a, b in zip(*out):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.parametrize("name,n_lights", [("cornell", 2), ("veach-mis", 320)])
 def test_k1_on_the_lights_only_accel(dev, name, n_lights):
     """K1 on the ref_mis_weights light accel (T = 2 or 320 light triangles,

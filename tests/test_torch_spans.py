@@ -23,6 +23,12 @@
   ``parallel.gather`` span a call, and none without a profiler; the
   benchmark's ``allgather_ms`` reads those spans a launch, and nothing
   from a program that emits spans but not this one.
+- Each ``diff.inverse.recover_materials`` step is one ``inverse.step``
+  span holding ``inverse.target``, ``inverse.forward``,
+  ``inverse.backward``, ``inverse.update`` and ``inverse.sync`` in that
+  order, and each render in it one ``wavefront.sync`` a bounce after the
+  first; the benchmark's ``inverse_*`` readers read them a step, and
+  nothing from a trace without ``inverse.step``.
 The benchmark's readers of these spans: benchmark/tests/test_spans.py."""
 
 import dataclasses
@@ -268,3 +274,48 @@ def test_allgather_ms_reads_parallel_gather_spans():
     assert read(window(a, b)) == pytest.approx((80 + 120) / 2 / 2 * 1e-3)
     assert read(window(loop, loop)) is None               # spans, but none of these
     assert read(window([("aten::add", 0, 1)])) is None    # a program without spans
+
+
+def _inverse_steps(scene, steps=2, max_depth=3):
+    from monte_carlo_path_tracing_tpu_torch.cli import perturb_materials
+    from monte_carlo_path_tracing_tpu_torch.diff.inverse import recover_materials
+
+    cfg = _cfg(spp=1, max_depth=max_depth)
+    init = perturb_materials(scene.materials, 0.2, ("kd", "ks", "ns", "emission"))
+    return recover_materials(scene, init, cfg, steps=steps, lr=0.1, rays_per_step=W * H,
+                             seed=11)
+
+
+@pytest.mark.parametrize("max_depth", [3, 4])
+def test_each_inverse_step_nests_its_spans_in_order(scene, max_depth):
+    _, spans = _spans(lambda: _inverse_steps(scene, 2, max_depth))
+    steps = [s for s in spans if s[2] == "inverse.step"]
+    assert len(steps) == 2
+    for st in steps:
+        kids = _children(st, spans)
+        assert [k[2] for k in kids] == ["inverse.target", "inverse.forward", "inverse.backward",
+                                        "inverse.update", "inverse.sync"]
+        syncs = [[c[2] for c in _children(k, spans)] for k in kids]
+        # one render in the target, two in the forward pass
+        assert syncs == [["wavefront.sync"] * (max_depth - 1),
+                         ["wavefront.sync"] * (2 * (max_depth - 1)), [], [], []]
+    assert all(s[2].startswith(("inverse.", "wavefront.")) for s in spans)
+
+
+def test_the_inverse_readers_read_the_steps_spans(scene):
+    from benchmark import harness, trace
+
+    def window(fn, launches):
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            fn()
+        return harness.Window(start=0.0, launches=[], setup_s=0.0,
+                              traces=[trace.summarize(prof, launches, launches * 3 * W * H)])
+
+    names = ["inverse_target_ms", "inverse_forward_ms", "inverse_backward_ms", "inverse_sync_ms",
+             "inverse_host_syncs"]
+    got = {n: harness.metric_module(n).read(window(lambda: _inverse_steps(scene), 2))
+           for n in names}
+    assert got["inverse_host_syncs"] == 7.0           # the loss, and 2 + 4 live-mask reads
+    assert all(got[n] > 0.0 for n in names), got
+    regen = window(lambda: render_image_regen(scene, _cfg(), lanes=LANES), 1)
+    assert {n: harness.metric_module(n).read(regen) for n in names} == dict.fromkeys(names)
